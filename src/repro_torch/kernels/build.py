@@ -1,0 +1,91 @@
+"""Build the CUDA sources under ``src/repro_torch/csrc/`` and load them.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into
+``build/<name>-<hash>.so`` at the repository root, at first use, and
+loaded with ``ctypes``. The file name carries a hash of the source and the
+flags, so an edited source never loads a stale library. :func:`build_all`
+starts one nvcc per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns ``(proc, tmp, target)`` or None
+    when the library is already built."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, target
+
+
+def _finish(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp, target = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu (rc {proc.returncode}):\n{out}")
+    os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+def build_all(names) -> dict[str, str]:
+    """Compile every named source in parallel (one nvcc each); returns the
+    compiler's output (register / shared-memory report) per name."""
+    with _lock:
+        started = {n: _start(n) for n in names}
+        return {n: _finish(n, s) for n, s in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib
