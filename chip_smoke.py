@@ -8,20 +8,33 @@ port's CUDA kernels from src/repro_torch/csrc into build/, and exits
 non-zero, printing no result, when anything is missing or any phase fails:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   the kernel build (timed, with nvcc's register / shared-memory report);
-2. every kernel of the serving path against its plain PyTorch version at
+   the kernel build of the three sources (one nvcc each, in parallel,
+   timed, with nvcc's register / shared-memory report);
+2. every kernel of the serving paths against its plain PyTorch version at
    the full qwen3-1.7b shapes, with the tolerance stated, and timed with
    CUDA events (device time, L2 flushed before every launch; median of 50)
-   beside its bound, the plain version and one PyTorch call as a yardstick;
-3. the port's main path at full width: the full qwen3-1.7b config with
-   seeded random weights serves 8 prompts of 128 tokens (chunked prefill
-   into the dense per-slot cache) and then 32 greedy decode steps, with the
-   kernels' launch counts checked; a profile of one more prefill chunk and
-   decode step (kernel time against the unprofiled wall time per call, so
-   the device's busy and idle share, and the top kernels); then one
-   full-width fp32 decode step through the kernels against
-   ``use_kernels=False``;
-4. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+   beside its bound, the plain version and one PyTorch call as a yardstick
+   where one exists: the word2ketXS lookup, the kron head, and the split-KV
+   paged decode read (split and combine) at 32 and 256 pages per slot with
+   ragged lengths (0, a partial page, one past the table) and a NaN-filled
+   trash page;
+3. slice 1's path at full width: the full qwen3-1.7b config with seeded
+   random weights serves 8 prompts of 128 tokens (chunked prefill into the
+   dense per-slot cache) and then 32 greedy decode steps, with the kernels'
+   launch counts checked; a profile of one more prefill chunk and decode
+   step (kernel time against the unprofiled wall time per call, so the
+   device's busy and idle share, and the top kernels); then one full-width
+   fp32 decode step through the kernels against ``use_kernels=False``;
+4. slice 2's path at full width: ``ServingEngine`` (8 slots, max_len 512,
+   bf16 activations) serves 16 requests of 128 tokens sharing a 64-token
+   prefix, 32 new tokens each, twice: (a) with the prefix cache on the full
+   pool, (b) without it on a 60-page pool that forces preemption. After
+   every tick ``check()`` audits the pages; at the end every request is
+   complete, every page free, every token in the vocabulary, and each
+   kernel's launches match the ticks. Then a profile of one engine decode
+   tick, and one full-width fp32 paged decode step held against the plain
+   versions and against the dense-cache step;
+5. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -49,6 +62,20 @@ GATHER_TOL = dict(atol=1e-4, rtol=1e-5)  # sums of 32 unit-variance LN rows;
 # the kernel takes the order-2 LN moments by the separable formula
 MATMUL_TOL = dict(atol=1e-4, rtol=1e-5)  # depth-(r*q2) fp32 sums, other order
 MODEL_F32_ATOL = 1e-3  # 28 random fp32 layers may grow a ~1e-6 embedding difference
+# the paged read: fp32 partials differ only in summation order; with bf16
+# pools a probability rounded to bf16 before the PV product may land one
+# unit (2^-9 at 0.5) apart when its fp32 score differs in the last bit,
+# times |v| up to about 5
+PAGED_TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=1e-2, rtol=1e-3)}
+COMBINE_TOL = dict(atol=1e-5, rtol=1e-5)  # fp32 in, fp32 out, S terms
+# ragged lengths per slot at 32 and 256 pages: 0, partial pages, one past
+# the table (the pages past NP re-read its last entry)
+RAGGED = {32: (0, 1, 17, 100, 144, 512, 600, 333),
+          256: (0, 15, 1000, 2049, 4096, 4100, 3333, 4095)}
+# lengths the timings use: mid-decode in the engine (128-token prompt + 16),
+# and a full 4096-token read
+TIMED_LEN = {32: 144, 256: 4096}
+ENGINE_REQUESTS, SHARED_PREFIX, TIGHT_PAGES = 16, 64, 60
 
 
 def log(msg: str) -> None:
@@ -224,7 +251,20 @@ def profile_call(torch, what: str, fn, wall_ms: float) -> None:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
 
 
-def drive_main_path(torch, dev):
+def init_params(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"[main] {cfg.name}: {MD.param_count(params):,} params (fp32) initialised in "
+        f"{time.perf_counter() - t0:.1f} s; activations {cfg.dtype}")
+    return params
+
+
+def drive_main_path(torch, dev, params):
     """Phase 3: the full config serving 8 prompts, launch counts checked."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.kron_gather import ops as G
@@ -233,11 +273,6 @@ def drive_main_path(torch, dev):
 
     cfg = get_config(ARCH)
     C = cfg.prefill_chunk
-    t0 = time.perf_counter()
-    params = MD.init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    log(f"[main] {cfg.name}: {MD.param_count(params):,} params (fp32) initialised in "
-        f"{time.perf_counter() - t0:.1f} s; activations {cfg.dtype}")
     gen = torch.Generator(device=dev).manual_seed(2)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
                             device=dev, dtype=torch.int32)
@@ -313,6 +348,265 @@ def drive_main_path(torch, dev):
     return launches
 
 
+def paged_inputs(torch, dev, cfg, dtype, NP, lens, gen):
+    """q, pools with a NaN trash page (row 0), a permuted page table whose
+    entries past each slot's valid pages are trash (a slot longer than the
+    table keeps every entry), lens."""
+    B, H, KVH, Dh, ps = BATCH, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
+    P = 1 + B * NP
+    q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((P, ps, KVH, Dh), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((P, ps, KVH, Dh), generator=gen, device=dev).to(dtype)
+    kp[0] = float("nan")
+    vp[0] = float("nan")
+    ptab = (torch.randperm(P - 1, generator=gen, device=dev) + 1).reshape(B, NP)
+    for b, n in enumerate(lens):
+        ptab[b, -(-n // ps):] = 0
+    return (q, kp, vp, ptab.to(torch.int32),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def check_paged_kernels(torch, dev):
+    """Phase 2, slice 2: the split-KV paged read against its plain versions
+    at full width, timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attn import ops as FA
+
+    cfg = get_config(ARCH)
+    B, H, KVH, Dh, ps = BATCH, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
+    G = H // KVH
+    gen = torch.Generator(device=dev).manual_seed(3)
+    scratch = torch.empty(16 * 2 ** 20, dtype=torch.int32, device=dev)  # 64 MB > L2
+    flush = scratch.zero_
+    results = []
+    for NP in (32, 256):
+        S = autotune.heuristic_kv_splits(ps, G, Dh, NP, batch=B)
+        log(f"[kernels] paged_split + paged_combine: B={B}, {H} heads over {KVH} kv heads, "
+            f"Dh {Dh}, {NP} pages of {ps} per slot, {S} splits, lens {RAGGED[NP]}, "
+            f"NaN trash page")
+        errs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            args = paged_inputs(torch, dev, cfg, dtype, NP, RAGGED[NP], gen)
+            got = FA.paged_attention_split(*args, kv_splits=S)
+            out = FA.combine_splits(*got)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(t).all()) for t in (*got, out)):
+                fail(f"non-finite paged output at NP={NP} {name}")
+            want = FA.paged_attention_split(*args, kv_splits=S, use_kernel=False)
+            split_err = max(max_err(torch, g, w, PAGED_TOL[name],
+                                    f"split {part} NP={NP} {name}")
+                            for part, g, w in zip(("mid_o", "m", "l"), got, want))
+            comb_err = max_err(torch, out, FA.combine_splits(*got, use_kernel=False),
+                               COMBINE_TOL, f"combine NP={NP} {name}")
+            if not bool((out[0] == 0).all()):
+                fail("a slot with lens 0 did not combine to 0")
+            errs[name] = (split_err, comb_err)
+
+        n = TIMED_LEN[NP]
+        q, kp, vp, ptab, lens = paged_inputs(torch, dev, cfg, torch.bfloat16, NP, [n] * B, gen)
+        parts = FA.paged_attention_split(q, kp, vp, ptab, lens, kv_splits=S)
+        # the yardstick reads the same K/V already laid out dense (gather excluded)
+        kd = kp[ptab.long()].reshape(B, NP * ps, KVH, Dh)[:, :n].transpose(1, 2).contiguous()
+        vd = vp[ptab.long()].reshape(B, NP * ps, KVH, Dh)[:, :n].transpose(1, 2).contiguous()
+        q4 = q[:, :, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ref = FA.combine_splits(*parts).reshape(B, H, Dh)
+        diff = (sdpa(q4, kd, vd, enable_gqa=True)[:, :, 0].float() - ref).abs().max().item()
+        log(f"  timed read ({n} tokens per slot, bf16): split+combine vs sdpa on dense K/V "
+            f"max |diff| = {diff:.3e}")
+        tokens = B * n
+        part_bytes = sum(t.numel() * 4 for t in parts)
+        split_bytes = (tokens * KVH * Dh * 2 * kp.element_size() + q.numel() * q.element_size()
+                       + ptab.numel() * 4 + lens.numel() * 4 + part_bytes)
+        b_ms, b_by = bound(split_bytes, 4.0 * tokens * H * Dh)
+        shape = f"B={B} NP={NP} lens={n} S={S}"
+        results.append({
+            "name": "paged_split", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/flash_attn/paged.py:85",
+            "shape": shape, "max_abs_err": errs["bfloat16"][0],
+            "ms": time_ms(torch, lambda: FA.paged_attention_split(
+                q, kp, vp, ptab, lens, kv_splits=S), flush),
+            "plain_ms": time_ms(torch, lambda: FA.paged_attention_split(
+                q, kp, vp, ptab, lens, kv_splits=S, use_kernel=False), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, lambda: sdpa(q4, kd, vd, enable_gqa=True), flush),
+            "library": "F.scaled_dot_product_attention over the same K/V laid out dense "
+                       "(gather excluded)",
+        })
+        out_bytes = B * KVH * G * Dh * 4
+        b_ms, b_by = bound(part_bytes + out_bytes, 3.0 * parts[0].numel())
+        results.append({
+            "name": "paged_combine", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/flash_attn/paged.py:175",
+            "shape": shape, "max_abs_err": errs["bfloat16"][1],
+            "ms": time_ms(torch, lambda: FA.combine_splits(*parts), flush),
+            "plain_ms": time_ms(torch, lambda: FA.combine_splits(*parts, use_kernel=False),
+                                flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "library": "none (no single PyTorch call merges partials)",
+        })
+        del q, kp, vp, kd, vd, parts
+    del scratch
+    torch.cuda.empty_cache()
+    for e in results:
+        lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+        log(f"  {e['name']:14s} {e['shape']:30s} kernel {e['ms']:.4f} ms  "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})  plain {e['plain_ms']:.4f} ms  "
+            f"library {lib}")
+    # the JSON line keeps the engine's decode shape (32 pages per slot)
+    return [e for e in results if " NP=32 " in e["shape"]]
+
+
+def run_engine(torch, dev, cfg, params, prompts, what, **kw):
+    """One engine drain with ``check()`` after every tick; returns (engine,
+    stats, launches during the drain, decode-tick wall times in ms)."""
+    from repro_torch.kernels.flash_attn import ops as FA
+    from repro_torch.kernels.kron_gather import ops as G
+    from repro_torch.kernels.kron_matmul import ops as M
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    eng = ServingEngine(cfg, params, batch_slots=BATCH, max_len=MAX_LEN, device=dev, **kw)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    G.launches = M.launches = 0
+    FA.launches.update(paged_split=0, paged_combine=0)
+    decode_ms = []
+    while eng.has_work():
+        if eng._tick >= 2000:
+            fail(f"engine {what} did not drain in 2000 ticks")
+        before = eng.decode_ticks
+        t0 = time.perf_counter()
+        eng.step()  # ends in a host read of the sampled tokens: a sync
+        dt = (time.perf_counter() - t0) * 1e3
+        if eng.decode_ticks > before:
+            decode_ms.append(dt)
+        eng.check()
+    launches = {"kron_gather_fwd": G.launches, "kron_matmul_fwd": M.launches,
+                "paged_split": FA.launches["paged_split"],
+                "paged_combine": FA.launches["paged_combine"]}
+    st = eng.stats()
+    if eng.prefix_cache is not None:  # at drain only the cache holds pages
+        eng.prefix_cache.evict(len(eng.prefix_cache))
+    free, cap = eng.page_stats()["free_pages"], eng.page_stats()["page_capacity"]
+    log(f"[engine {what}] {st['completed']} completed, {st['failed']} failed; "
+        f"{st['prefill_ticks']} prefill + {st['decode_ticks']} decode ticks, "
+        f"{st['stalled_ticks']} stalled; preemptions {st['preemptions']}, prefix hit pages "
+        f"{st['prefix_hit_pages']}, cow {st['cow_copies']}; kv_splits "
+        f"{eng.cfg.decode_kv_splits}; pages free {free}/{cap}")
+    log(f"[engine {what}] {st['tokens_per_sec']:.1f} gen tok/s, "
+        f"{st['prompt_tokens_per_sec']:.1f} prompt tok/s, latency p50 "
+        f"{st['p50_latency_s']:.3f} s p95 {st['p95_latency_s']:.3f} s, TTFT p50 "
+        f"{st['ttft_p50_s']:.3f} s; decode tick median "
+        f"{statistics.median(decode_ms):.2f} ms over {len(decode_ms)}")
+    expected = {"kron_gather_fwd": st["ticks"], "kron_matmul_fwd": st["ticks"],
+                "paged_split": cfg.num_layers * st["decode_ticks"],
+                "paged_combine": cfg.num_layers * st["decode_ticks"]}
+    log(f"[engine {what}] launches {launches} (expected {expected})")
+    if launches != expected:
+        fail(f"engine {what}: launches {launches}, expected {expected}")
+    if st["completed"] != len(prompts) or st["failed"] or free != cap:
+        fail(f"engine {what}: {st['completed']} completed, {st['failed']} failed, "
+             f"pages free {free}/{cap}")
+    for r in reqs:
+        if len(r.output) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.output):
+            fail(f"engine {what}: request {r.uid} gave {r.output}")
+    return eng, st, launches, decode_ms
+
+
+def drive_engine(torch, dev, params):
+    """Phase 4: slice 2's path, ServingEngine at full width, runs (a) and (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.faultinject import shared_prefix_prompts
+
+    cfg = get_config(ARCH)
+    prompts = shared_prefix_prompts(4, ENGINE_REQUESTS, SHARED_PREFIX,
+                                    PROMPT_LEN - SHARED_PREFIX, cfg.vocab_size)
+    with torch.inference_mode():
+        eng, st, launches, _ = run_engine(torch, dev, cfg, params, prompts, "a",
+                                          prefix_cache=True)
+        if st["prefix_hit_pages"] <= 0:
+            fail("engine a: the shared prefix never hit the prefix cache")
+
+        # one more decode tick, profiled: 8 short requests, prefilled, then
+        # three unprofiled decode ticks give the wall time per tick
+        gen = torch.Generator().manual_seed(5)
+        for i in range(BATCH):
+            eng.submit(Request(uid=100 + i, max_new_tokens=8, prompt=torch.randint(
+                0, cfg.vocab_size, (cfg.prefill_chunk,), generator=gen).tolist()))
+        while any(eng.slot_pending) or eng.queue:
+            eng.step()
+        walls = []
+        for _ in range(3):
+            before, t0 = eng.decode_ticks, time.perf_counter()
+            eng.step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if eng.decode_ticks != before + 1:
+                fail("the profiled engine tick is not a decode tick")
+        before = eng.decode_ticks
+        profile_call(torch, "one engine decode tick (8 slots, paged)", eng.step,
+                     statistics.median(walls))
+        if eng.decode_ticks != before + 1:
+            fail("the profiled engine tick is not a decode tick")
+        eng.run_until_drained()
+        del eng
+        torch.cuda.empty_cache()
+
+        _, st_b, _, _ = run_engine(torch, dev, cfg, params, prompts, "b",
+                                   num_pages=TIGHT_PAGES)
+        if st_b["preemptions"] < 1:
+            fail(f"engine b: no preemption on a {TIGHT_PAGES}-page pool")
+    return launches
+
+
+def check_paged_step_fp32(torch, dev, params):
+    """One full-width fp32 paged decode step after a 128-token prefill,
+    through the kernels against the plain versions, and against the dense
+    cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as FA
+    from repro_torch.models import model as MD
+    from repro_torch.serve.cache import identity_ptab
+
+    cfg32 = dataclasses.replace(get_config(ARCH), dtype=torch.float32)
+    C = cfg32.prefill_chunk
+    gen = torch.Generator(device=dev).manual_seed(6)
+    prompts = torch.randint(0, cfg32.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
+                            device=dev, dtype=torch.int32)
+    lens = torch.full((BATCH,), C, device=dev, dtype=torch.int32)
+    outs, tok = {}, None
+    with torch.inference_mode():
+        for name, c, paged in (("kernels", cfg32, True),
+                               ("plain", dataclasses.replace(cfg32, use_kernels=False), True),
+                               ("dense", cfg32, False)):
+            cache = MD.init_cache(c, BATCH, MAX_LEN, paged=paged, device=dev)
+            if paged:
+                identity_ptab(cache, BATCH)
+            for c0 in range(0, PROMPT_LEN, C):
+                logits, cache = MD.prefill_chunk_fn(params, c, cache,
+                                                    prompts[:, c0:c0 + C], lens)
+            if tok is None:
+                tok = logits.argmax(-1).to(torch.int32)
+            before = FA.launches["paged_split"]
+            outs[name] = MD.serve_step_fn(params, c, cache, tok)[0]
+            if name == "kernels" and FA.launches["paged_split"] != before + cfg32.num_layers:
+                fail("the fp32 paged step did not run the split kernel in every layer")
+            del cache
+    for other in ("plain", "dense"):
+        diff = (outs["kernels"] - outs[other]).abs().max().item()
+        log(f"[paged] fp32 decode step after {PROMPT_LEN} tokens, paged kernel route vs "
+            f"{other}: max |dlogit| = {diff:.3e} (atol {MODEL_F32_ATOL:g}), |logit| max "
+            f"{outs[other].abs().max().item():.3f}")
+        if not diff <= MODEL_F32_ATOL:
+            fail(f"the paged kernel route and the {other} step disagree on the full model")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py; run it from a checkout")
@@ -331,17 +625,21 @@ def main() -> None:
     log(f"[env] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    reports = build.build_all(["kron_gather", "kron_matmul"])
+    reports = build.build_all(["kron_gather", "kron_matmul", "paged_attention"])
     log(f"[env] kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for name, out in reports.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    kernels = check_kernels(torch, dev)
-    launches = drive_main_path(torch, dev)
+    kernels = check_kernels(torch, dev) + check_paged_kernels(torch, dev)
+    params = init_params(torch, dev)
+    launches = drive_main_path(torch, dev, params)  # slice 1's path
+    engine_launches = drive_engine(torch, dev, params)  # slice 2's path, run (a)
+    check_paged_step_fp32(torch, dev, params)
     for e in kernels:
-        e["launches"] = launches[e["name"]]
+        path = engine_launches if e["name"].startswith("paged") else launches
+        e["launches"] = path[e["name"]]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

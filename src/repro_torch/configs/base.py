@@ -2,8 +2,8 @@
 
 Field names and defaults are those of ``repro.configs.base.ModelConfig``;
 ``dtype`` and ``param_dtype`` are torch dtypes. Fields of slices not yet
-ported (MoE, MLA, SSM, ket linears, quantization, paging, meshes) are left
-out until their slice lands.
+ported (MoE, MLA, SSM, ket linears, quantization, meshes) are left out
+until their slice lands.
 """
 
 from __future__ import annotations
@@ -57,7 +57,16 @@ class ModelConfig:
     param_dtype: Any = torch.float32
 
     attn_chunk: int = 1024  # flash-attention KV-chunk size
-    prefill_chunk: int = 16  # prompt tokens per chunked-prefill call
+
+    # serving substrate (serve/engine.py + serve/cache.py): ``page_size`` is
+    # the token granularity of the paged KV pools; ``prefill_chunk`` is how
+    # many prompt tokens one engine tick ingests through chunked prefill
+    page_size: int = 16
+    prefill_chunk: int = 16
+    # parallel KV splits of the split-KV paged decode read. None = resolved
+    # from kernels.autotune.heuristic_kv_splits on the read shape; the
+    # engine pins it at build time so every decode step uses one value
+    decode_kv_splits: Optional[int] = None
 
     def __post_init__(self):
         if self.family != "dense":
@@ -70,6 +79,10 @@ class ModelConfig:
                 f"layer kinds {self.layer_pattern} are not ported yet (only 'attn')")
         if self.mlp_type != "swiglu":
             raise NotImplementedError(f"mlp_type {self.mlp_type!r} is not ported yet")
+
+    @property
+    def q_heads_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
 
 
 def embedding_for(cfg: ModelConfig) -> EmbeddingConfig:

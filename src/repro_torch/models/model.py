@@ -36,9 +36,19 @@ def param_count(params) -> int:
     return sum(param_count(v) for v in params)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> dict:
-    """Dense per-slot decode cache (serve/cache.py)."""
-    return SC.init_cache(cfg, batch, max_len, device=device)
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, paged: bool = False,
+               num_pages: int | None = None, page_size: int | None = None,
+               device="cuda") -> dict:
+    """Decode cache (serve/cache.py): dense slots by default, paged KV pools
+    with ``paged=True`` (``num_pages`` counts the trash page; None gives
+    full capacity, every slot able to reach max_len)."""
+    if not paged:
+        return SC.init_cache(cfg, batch, max_len, device=device)
+    ps = page_size or cfg.page_size
+    if num_pages is None:
+        num_pages = batch * SC.logical_pages(max_len, ps) + 1
+    return SC.init_paged_cache(cfg, batch, max_len, num_pages=num_pages, page_size=ps,
+                               device=device)
 
 
 def serve_step_fn(params: dict, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):

@@ -1,2 +1,3 @@
-"""Serving substrate: the dense per-slot KV cache, decode and chunked
-prefill steps."""
+"""Serving substrate: dense and paged KV caches, the page allocator and
+prefix cache, decode and chunked prefill steps, and the continuous-batching
+engine."""

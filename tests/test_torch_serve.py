@@ -105,8 +105,64 @@ def test_launcher_serves_on_cpu(capsys):
     assert line.endswith(" tok/s)")
 
 
-@pytest.mark.parametrize("flag", [["--paged"], ["--engine"], ["--quant", "int8"],
-                                  ["--mesh", "1x2"]])
+def test_decode_past_the_dense_cache_matches_jax():
+    """Steps at or past max_len drop their K/V write, as JAX's scatter does
+    (an idle engine slot advances its step with its neighbours): max_len + 2
+    decode steps on a max_len = 4 cache match the JAX logits."""
+    jcfg = jax_smoke("qwen3-1.7b", dtype=jnp.float32)
+    tcfg = get_smoke("qwen3-1.7b", dtype=torch.float32)
+    jparams = JMD.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = jax_params_to_torch(jax.tree_util.tree_map(np.asarray, jparams), tcfg,
+                                  device="cpu")
+    jstep = jax.jit(lambda p, c, t: JMD.serve_step_fn(p, jcfg, c, t))
+    jcache = JMD.init_cache(jcfg, 2, 4)
+    tcache = MD.init_cache(tcfg, 2, 4, device="cpu")
+    tok = np.array([3, 5], np.int32)
+    with torch.inference_mode():
+        for _ in range(4 + 2):
+            jl, jcache = jstep(jparams, jcache, jnp.asarray(tok))
+            tl, tcache = MD.serve_step_fn(tparams, tcfg, tcache, torch.from_numpy(tok))
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+            tok = np.argmax(np.asarray(jl), axis=-1).astype(np.int32)
+    np.testing.assert_array_equal(tcache["step"].numpy(), [6, 6])
+
+
+def test_launcher_serves_paged_raw_steps_on_cpu(capsys):
+    assert launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                              "--paged", "--batch", "2", "--new-tokens", "3",
+                              "--max-len", "8"]) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[serve] qwen3-1.7b-smoke mesh=OrderedDict({'data': 1, "
+                           "'model': 1}) cache=paged: 6 tok in ")
+
+
+# the JAX launcher prints the same ticks and pages for these arguments
+@pytest.mark.parametrize("extra,ticks,tail", [
+    ([], "6 reqs in 10 ticks (6 prefill + 4 decode)", "pages free=6/6"),
+    (["--prefix-cache", "--shared-prefix-len", "16", "--requests", "10", "--batch", "4"],
+     "10 reqs in 11 ticks (5 prefill + 6 decode)",
+     "pages free=7/8, prefix hit pages=6 (hits=6 misses=4 cow=0)"),
+], ids=["random_prompts", "prefix_cache"])
+def test_launcher_serves_engine_on_cpu(capsys, extra, ticks, tail):
+    args = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--engine",
+            "--requests", "6", "--batch", "3", "--prompt-len", "20",
+            "--new-tokens", "3", "--max-len", "32", "--prefill-chunk", "8"]
+    assert launch_serve.main(args + extra) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("[serve:engine] qwen3-1.7b-smoke chunked/paged/optimistic: "
+                           + ticks), line
+    assert line.endswith(tail), line
+
+
+def test_launcher_engine_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--engine"])
+
+
+@pytest.mark.parametrize("flag", [pytest.param(["--quant", "int8"], id="flag2"),
+                                  pytest.param(["--mesh", "1x2"], id="flag3")])
 def test_launcher_refuses_unported_modes(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", *flag])
