@@ -8,7 +8,7 @@ port's CUDA kernels from src/repro_torch/csrc into build/, and exits
 non-zero, printing no result, when anything is missing or any phase fails:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   the kernel build of the three sources (one nvcc each, in parallel,
+   the kernel build of the four sources (one nvcc each, in parallel,
    timed, with nvcc's register / shared-memory report);
 2. every kernel of the serving paths against its plain PyTorch version at
    the full qwen3-1.7b shapes, with the tolerance stated, and timed with
@@ -34,13 +34,33 @@ non-zero, printing no result, when anything is missing or any phase fails:
    kernel's launches match the ticks. Then a profile of one engine decode
    tick, and one full-width fp32 paged decode step held against the plain
    versions and against the dense-cache step;
-5. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+5. slice 3's kernels (training) at full width, each against its plain
+   version and timed as in phase 2: the kron_gather stats leg and backward
+   at 2,048 ids (repeated ids, 0 and vocab-1 among them), and the fused
+   Kronecker-head CE forward and backward at 2,048 tokens (labels 0 and
+   vocab-1 among them); the yardsticks are ``F.embedding`` forward and
+   backward on the materialized 1.24 GB table, and ``torch.matmul`` on the
+   materialized head plus ``F.cross_entropy`` (forward, and forward with
+   backward);
+6. slice 3's path at full width, after the serving state is freed (the
+   serving phases keep their full depth; the whole script runs in about
+   two minutes on an H100): the full qwen3-1.7b trains for a few AdamW
+   steps (no warmup) through
+   ``make_train_step`` on ``synthetic.batch_at`` Markov batches of 8 x 256
+   tokens, bf16 activations; every loss and grad norm finite, the last loss
+   below the first, each training kernel launched exactly once per step,
+   the peak device memory, and a profile of one step; then one full-width
+   fp32 training step through the kernels against ``use_kernels=False``
+   (loss, embedding and head factor gradients, one layer's weights after
+   the AdamW update);
+7. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -62,6 +82,19 @@ GATHER_TOL = dict(atol=1e-4, rtol=1e-5)  # sums of 32 unit-variance LN rows;
 # the kernel takes the order-2 LN moments by the separable formula
 MATMUL_TOL = dict(atol=1e-4, rtol=1e-5)  # depth-(r*q2) fp32 sums, other order
 MODEL_F32_ATOL = 1e-3  # 28 random fp32 layers may grow a ~1e-6 embedding difference
+# training kernels: the stats leg takes the LN moments by the separable
+# formula; the gather backward sums by fp32 atomicAdd in no fixed order; the
+# CE kernels sum 1,024-deep products and 152,100 exponentials in another
+# order, and the backward's dh and dF are sums of softmax - onehot terms that
+# cancel, so their tolerance is scaled by the largest entry
+STATS_TOL = dict(atol=1e-5, rtol=1e-4)
+GATHER_BWD_SCALE, CE_BWD_SCALE = 1e-5, 1e-4  # atol = scale * max|plain|, rtol 1e-4
+CE_LOSS_TOL = dict(atol=1e-4, rtol=1e-5)
+TRAIN_TOKENS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 256, 5, 1e-3
+# the fp32 training step: the loss and the factor gradients are sums over
+# 2,048 tokens through 28 layers; AdamW moves a weight by up to lr either way
+# when its gradient is near zero and differs in its last bits
+TRAIN_F32_LOSS_ATOL, TRAIN_F32_GRAD_SCALE = 1e-4, 1e-3
 # the paged read: fp32 partials differ only in summation order; with bf16
 # pools a probability rounded to bf16 before the PV product may land one
 # unit (2^-9 at 0.5) apart when its fp32 score differs in the last bit,
@@ -221,10 +254,24 @@ def check_kernels(torch, dev):
             if e["shape"].startswith((f"ids ({BATCH},)", f"x ({BATCH},"))]
 
 
-def profile_call(torch, what: str, fn, wall_ms: float) -> None:
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.flash_attn import ops as FA
+    from repro_torch.kernels.kron_gather import ops as G
+    from repro_torch.kernels.kron_logits import ops as CE
+    from repro_torch.kernels.kron_matmul import ops as M
+
+    for counts in (FA.launches, G.launches, CE.launches):
+        for k in counts:
+            counts[k] = 0
+    M.launches = 0
+
+
+def profile_call(torch, what: str, fn, wall_ms: float, groups=None) -> None:
     """Device time of one call by kernel (torch.profiler over CUPTI) against
     ``wall_ms``, the call's unprofiled wall time: the device's busy and idle
-    share. Prints "not measured" when the trace holds no kernel."""
+    share. Prints "not measured" when the trace holds no kernel. ``groups``
+    ({kind: name substrings}) adds the device time summed by kind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -249,6 +296,14 @@ def profile_call(torch, what: str, fn, wall_ms: float) -> None:
         f"{100 * max(0.0, 1 - busy_ms / wall_ms):.1f}%); top kernels:")
     for e in kernels[:8]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
+    if groups:
+        sums = dict.fromkeys(list(groups) + ["other"], 0.0)
+        for e in kernels:
+            name = next((g for g, keys in groups.items() if any(k in e.key for k in keys)),
+                        "other")
+            sums[name] += dev_us(e) / 1e3
+        log(f"[profile] {what} by kind: " + ", ".join(f"{g} {ms:.3f} ms"
+                                                      for g, ms in sums.items()))
 
 
 def init_params(torch, dev):
@@ -286,7 +341,7 @@ def drive_main_path(torch, dev, params):
         cache = MD.init_cache(cfg, BATCH, MAX_LEN, device=dev)
         torch.cuda.synchronize()
 
-        G.launches = M.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         for c0 in range(0, PROMPT_LEN, C):
             logits, cache = MD.prefill_chunk_fn(params, cfg, cache, prompts[:, c0:c0 + C],
@@ -302,7 +357,8 @@ def drive_main_path(torch, dev, params):
             generated.append(tok)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
-        launches = {"kron_gather_fwd": G.launches, "kron_matmul_fwd": M.launches}
+        launches = {"kron_gather_fwd": G.launches["kron_gather_fwd"],
+                    "kron_matmul_fwd": M.launches}
 
     n_chunks = PROMPT_LEN // C
     expected = n_chunks + NEW_TOKENS  # one launch per prefill chunk and per step
@@ -474,8 +530,7 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
-    G.launches = M.launches = 0
-    FA.launches.update(paged_split=0, paged_combine=0)
+    reset_counts()
     decode_ms = []
     while eng.has_work():
         if eng._tick >= 2000:
@@ -487,7 +542,8 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
         if eng.decode_ticks > before:
             decode_ms.append(dt)
         eng.check()
-    launches = {"kron_gather_fwd": G.launches, "kron_matmul_fwd": M.launches,
+    launches = {"kron_gather_fwd": G.launches["kron_gather_fwd"],
+                "kron_matmul_fwd": M.launches,
                 "paged_split": FA.launches["paged_split"],
                 "paged_combine": FA.launches["paged_combine"]}
     st = eng.stats()
@@ -607,6 +663,289 @@ def check_paged_step_fp32(torch, dev, params):
             fail(f"the paged kernel route and the {other} step disagree on the full model")
 
 
+def check_training_kernels(torch, dev):
+    """Phase 5: slice 3's kernels against their plain versions at full
+    width, timed beside their bounds and yardsticks."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import embedding_for, head_for
+    from repro_torch.core import ketops
+    from repro_torch.core.kron import mixed_radix_digits
+    from repro_torch.kernels.kron_gather import ops as G
+    from repro_torch.kernels.kron_logits import ops as CE
+    from repro_torch.kernels.kron_matmul import ops as M
+
+    cfg = get_config(ARCH)
+    espec, hspec = embedding_for(cfg).spec, head_for(cfg).spec
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ef = ketops.init(gen, espec, dev)["factors"]
+    hf = ketops.init(gen, hspec, dev)["factors"]
+    r, (q1, q2), (t1, t2) = espec.rank, espec.resolved_q(), espec.resolved_t()
+    P, V, N = espec.in_dim, cfg.vocab_size, TRAIN_TOKENS
+    fbytes = 4 * sum(f.numel() for f in ef)
+    scratch = torch.empty(16 * 2 ** 20, dtype=torch.int32, device=dev)  # 64 MB > L2
+    flush = scratch.zero_
+    results = []
+
+    def scaled(got, want, scale, what):
+        return max_err(torch, got, want, dict(atol=scale * want.abs().max().item(),
+                                              rtol=1e-4), what)
+
+    ids = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
+    ids[0], ids[-1], ids[1:64] = 0, V - 1, ids[64:127]  # repeated ids
+    log(f"[kernels] kron_gather stats leg and backward: N={N} ids ({ids.unique().numel()} "
+        f"distinct), F1 {tuple(ef[0].shape)}, F2 {tuple(ef[1].shape)} fp32, LN on")
+    out, stats = G.kron_gather_cuda(ef, ids, P, True, with_stats=True)
+    torch.cuda.synchronize()
+    want_out, want_stats = G.kron_gather_fwd_ref(ef, ids, embed_dim=P)
+    err_out = max_err(torch, out, want_out, GATHER_TOL, "stats leg out")
+    err_stats = max_err(torch, stats, want_stats, STATS_TOL, "stats leg (mean, rstd)")
+    g = torch.randn((N, P), generator=gen, device=dev)
+    dfs = G.kron_gather_bwd_cuda(ef, ids, g, stats)
+    torch.cuda.synchronize()
+    want_dfs = G.kron_gather_bwd_ref(ef, ids, g, want_stats)
+    err_bwd = max(scaled(a, b, GATHER_BWD_SCALE, f"gather backward dF{j + 1}")
+                  for j, (a, b) in enumerate(zip(dfs, want_dfs)))
+    d1, d2 = mixed_radix_digits(ids.long(), (t1, t2))
+    cols = 4 * (d1.unique().numel() * r * q1 + d2.unique().numel() * r * q2)
+    table = torch.cat([G.kron_gather(ef, part, P, True) for part in torch.split(
+        torch.arange(V, device=dev, dtype=torch.int32), 8192)]).requires_grad_(True)
+    ids_long = ids.long()
+
+    def embedding_fwd_bwd():
+        table.grad = None
+        F.embedding(ids_long, table).backward(g)
+
+    b_ms, b_by = bound(4 * N + cols + 4 * N * P + 8 * N * r, 2.0 * N * r * (P + q1 + q2))
+    results.append({
+        "name": "kron_gather_fwd_stats", "route": "cuda",
+        "source": "src/repro_torch/csrc/kron_gather.cu",
+        "replaces": "src/repro/kernels/kron_gather/kron_gather.py:57",
+        "shape": f"ids ({N},) -> ({N}, {P}) + stats ({N}, 2, {r})",
+        "max_abs_err": max(err_out, err_stats),
+        "ms": time_ms(torch, lambda: G.kron_gather_cuda(ef, ids, P, True, with_stats=True),
+                      flush),
+        "plain_ms": time_ms(torch, lambda: G.kron_gather_fwd_ref(ef, ids, embed_dim=P),
+                            flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, lambda: F.embedding(ids_long, table), flush),
+        "library": "F.embedding on the materialized 1.24 GB table",
+    })
+    # g, the stats and the touched columns in; dF (4.8 MB) out
+    b_ms, b_by = bound(4 * N + 4 * N * P + 8 * N * r + cols + fbytes,
+                       2.0 * N * r * (2 * P + 4 * (q1 + q2)))
+    results.append({
+        "name": "kron_gather_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/kron_gather.cu",
+        "replaces": "src/repro/kernels/kron_gather/kron_gather.py:80",
+        "shape": f"g ({N}, {P}) -> dF1 {tuple(ef[0].shape)}, dF2 {tuple(ef[1].shape)}",
+        "max_abs_err": err_bwd,
+        "ms": time_ms(torch, lambda: G.kron_gather_bwd_cuda(ef, ids, g, stats), flush),
+        "plain_ms": time_ms(torch, lambda: G.kron_gather_bwd_ref(ef, ids, g, want_stats),
+                            flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, embedding_fwd_bwd, flush),
+        "library": "F.embedding forward + backward on the materialized 1.24 GB table",
+    })
+    del table, g, dfs, want_dfs, out, want_out
+    torch.cuda.empty_cache()
+
+    h = torch.randn((N, P), generator=gen, device=dev)
+    y = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
+    y[0], y[-1] = 0, V - 1
+    tile = cfg.head_vocab_tile
+    log(f"[kernels] kron_ce forward and backward: N={N} tokens, F1 {tuple(hf[0].shape)}, "
+        f"F2 {tuple(hf[1].shape)} fp32, vocab {V} (of {t1 * t2} columns), "
+        f"{CE.vocab_splits(N, t1, torch.cuda.get_device_properties(dev).multi_processor_count)}"
+        f" t1 splits; plain version in tiles of {tile} t1 columns")
+    loss, m, l = CE.kron_ce_fwd_cuda(hf, h, y, V)
+    torch.cuda.synchronize()
+    want = CE.kron_ce_fwd_ref(hf, h, y, V, tile)
+    err_fwd = max_err(torch, loss, want[0], CE_LOSS_TOL, "CE forward loss")
+    max_err(torch, m, want[1], CE_LOSS_TOL, "CE forward m")
+    max_err(torch, l, want[2], dict(atol=0.0, rtol=1e-4), "CE forward l")
+    gce = torch.full((N,), 1.0 / N, device=dev)
+    dfs, dh = CE.kron_ce_bwd_cuda(hf, h, y, m, l, gce, V)
+    torch.cuda.synchronize()
+    want_dfs, want_dh = CE.kron_ce_bwd_ref(hf, h, y, m, l, gce, V, tile)
+    err_bwd = max(scaled(a, b, CE_BWD_SCALE, f"CE backward {name}") for name, a, b in
+                  zip(("dh", "dF1", "dF2"), (dh, *dfs), (want_dh, *want_dfs)))
+    again = CE.kron_ce_bwd_cuda(hf, h, y, m, l, gce, V)
+    if not (torch.equal(again[1], dh) and all(torch.equal(a, b)
+                                              for a, b in zip(again[0], dfs))):
+        fail("the CE backward gave other bits on a second run")
+    del again, want_dfs, want_dh
+    head = M.kron_matmul(hf, torch.eye(P, device=dev), V).requires_grad_(True)  # (P, V)
+    hq = h.clone().requires_grad_(True)
+    yl = y.long()
+
+    def dense_ce():
+        return F.cross_entropy(torch.matmul(h, head), yl, reduction="none")
+
+    def dense_ce_fwd_bwd():
+        hq.grad = head.grad = None
+        F.cross_entropy(torch.matmul(hq, head), yl).backward()
+
+    hbytes = 4 * sum(f.numel() for f in hf)
+    st1, st2 = 2.0 * r * q1 * q2 * t1, 2.0 * r * q2 * t1 * t2  # per token
+    b_ms, b_by = bound(4 * N * P + 4 * N + hbytes + 12 * N, N * (st1 + st2))
+    with torch.no_grad():
+        lib_fwd = time_ms(torch, dense_ce, flush, iters=10)
+    results.append({
+        "name": "kron_ce_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/kron_logits.cu",
+        "replaces": "src/repro/kernels/kron_logits/kron_logits.py:41",
+        "shape": f"h ({N}, {P}), labels ({N},) -> loss, m, l ({N},)",
+        "max_abs_err": err_fwd,
+        "ms": time_ms(torch, lambda: CE.kron_ce_fwd_cuda(hf, h, y, V), flush, iters=10),
+        "plain_ms": time_ms(torch, lambda: CE.kron_ce_fwd_ref(hf, h, y, V, tile), flush,
+                            iters=10),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_fwd,
+        "library": "torch.matmul on the materialized (2048, 151936) head + F.cross_entropy",
+    })
+    # recomputed stages 1 and 2, then dz, dF2 (stage-2 size) and dx, dF1
+    # (stage-1 size)
+    b_ms, b_by = bound(4 * N * P + 16 * N + hbytes + 4 * N * P + hbytes,
+                       N * (3 * st1 + 3 * st2))
+    results.append({
+        "name": "kron_ce_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/kron_logits.cu",
+        "replaces": "src/repro/kernels/kron_logits/kron_logits.py:78",
+        "shape": f"h ({N}, {P}), labels, g, m, l ({N},) -> dh ({N}, {P}), dF1, dF2",
+        "max_abs_err": err_bwd,
+        "ms": time_ms(torch, lambda: CE.kron_ce_bwd_cuda(hf, h, y, m, l, gce, V), flush,
+                      iters=10),
+        "plain_ms": time_ms(torch, lambda: CE.kron_ce_bwd_ref(hf, h, y, m, l, gce, V, tile),
+                            flush, iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, dense_ce_fwd_bwd, flush, iters=10),
+        "library": "torch.matmul + F.cross_entropy on the materialized head, "
+                   "forward + backward",
+    })
+    del head, hq, scratch
+    torch.cuda.empty_cache()
+    for e in results:
+        log(f"  {e['name']:22s} kernel {e['ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']})  plain {e['plain_ms']:.4f} ms  library "
+            f"{e['library_ms']:.4f} ms")
+    return results
+
+
+def drive_training(torch, dev):
+    """Phase 6: slice 3's path, the full config training through
+    make_train_step, launch counts checked; returns the launches and the
+    training state (for the fp32 check)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.kernels.kron_gather import ops as G
+    from repro_torch.kernels.kron_logits import ops as CE
+    from repro_torch.models import model as MD
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainConfig, make_train_step, with_params
+
+    cfg = get_config(ARCH)
+    batch = TRAIN_TOKENS // TRAIN_SEQ
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch,
+                      seed=0)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR))
+    torch.cuda.reset_peak_memory_stats()
+    state = with_params(MD.init_params(cfg, seed=0, device=dev))
+    step_fn = make_train_step(cfg, tcfg)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in batch_at(dcfg, i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    log(f"[train] {cfg.name}: {TRAIN_STEPS} AdamW steps at lr {TRAIN_LR:g} (constant, no "
+        f"warmup), batch {batch} x seq {TRAIN_SEQ} synthetic Markov tokens, activations "
+        f"{cfg.dtype}, remat {cfg.remat!r}")
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, gnorms, walls = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[i])
+        losses.append(float(metrics["loss"]))  # a host read: the step has ended
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(metrics["grad_norm"]))
+        log(f"[train] step {i}: loss {losses[-1]:.4f}, grad norm {gnorms[-1]:.4f}, "
+            f"{walls[-1]:.1f} ms")
+    launches = {**G.launches, **CE.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {"kron_gather_fwd": 0, "kron_gather_fwd_stats": TRAIN_STEPS,
+                "kron_gather_bwd": TRAIN_STEPS, "kron_ce_fwd": TRAIN_STEPS,
+                "kron_ce_bwd": TRAIN_STEPS}
+    log(f"[train] launches {launches} (expected {expected}: one per leg per microbatch "
+        f"per step)")
+    if launches != expected:
+        fail(f"training launches {launches}, expected {expected}")
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        fail(f"non-finite training metrics: losses {losses}, grad norms {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses}")
+    steady = statistics.median(walls[1:])
+    log(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f}; step wall median "
+        f"{steady:.1f} ms over steps 1-{TRAIN_STEPS - 1} ({TRAIN_TOKENS / steady * 1e3:.0f} "
+        f"tokens/s); peak device memory {peak:.2f} GiB")
+    profile_call(torch, "one training step", lambda: step_fn(state, batches[TRAIN_STEPS]),
+                 steady, groups={"CE kernels": ["ce_fwd_kernel", "ce_bwd_kernel",
+                                                "ce_combine", "sum_parts"],
+                                 "kron_gather kernels": ["kron_gather2"],
+                                 "GEMMs": ["gemm", "nvjet", "xmma", "cutlass"],
+                                 "elementwise and copies": ["elementwise", "copy", "reduce"]})
+    del launches["kron_gather_fwd"]  # the serving leg, checked above to stay unused
+    return launches, state
+
+
+def check_train_step_fp32(torch, dev, state):
+    """One full-width fp32 training step through the kernels against
+    use_kernels=False, on the same parameters and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.models import model as MD
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, global_norm,
+                                         tree_leaves)
+
+    cfg32 = dataclasses.replace(get_config(ARCH), dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(DataConfig(
+        vocab_size=cfg32.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_TOKENS // TRAIN_SEQ, seed=1), 0).items()}
+    params = state["params"]
+    leaves = list(tree_leaves(params))
+    layer = params["layers"][0]
+    n_layer = len(list(tree_leaves(layer)))
+    first = len(list(tree_leaves(params["embed"])))  # layer 0's leaves follow the embedding
+    out = {}
+    for name, c in (("kernels", cfg32), ("plain", dataclasses.replace(cfg32, use_kernels=False))):
+        loss, _ = MD.loss_fn(params, c, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        gnorm = global_norm(grads)
+        # one AdamW step of layer 0 from a fresh optimizer state, scaled by
+        # this route's global norm, as the full step would apply it
+        with torch.no_grad():
+            w = [t.detach().clone() for t in tree_leaves(layer)]
+        opt = adamw_init(w)
+        adamw_update(AdamWConfig(lr=TRAIN_LR), list(grads[first:first + n_layer]), opt, w,
+                     gnorm=gnorm)
+        out[name] = (loss.detach(), {"embed": grads[:2], "head": grads[-2:]}, w)
+        del grads
+    (lk, gk, wk), (lp, gp, wp) = out["kernels"], out["plain"]
+    dl = abs(lk.item() - lp.item())
+    log(f"[train] fp32 step, kernel route vs use_kernels=False: loss {lk.item():.6f} vs "
+        f"{lp.item():.6f}, |dloss| {dl:.3e} (atol {TRAIN_F32_LOSS_ATOL:g})")
+    if not dl <= TRAIN_F32_LOSS_ATOL:
+        fail("the fp32 training step's loss disagrees between the routes")
+    for part in ("embed", "head"):
+        for j, (a, b) in enumerate(zip(gk[part], gp[part])):
+            max_err(torch, a, b, dict(atol=TRAIN_F32_GRAD_SCALE * b.abs().max().item(),
+                                      rtol=1e-3), f"fp32 step d{part} factor {j + 1}")
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(wk, wp)])
+    off = (diff > 1e-5).float().mean().item()
+    log(f"[train] fp32 step, layer 0 weights after AdamW: max |dw| {diff.max().item():.3e} "
+        f"(bound 2 lr = {2 * TRAIN_LR:g}), share above 1e-5: {off:.2e} (bound 1e-3)")
+    if diff.max().item() > 2 * TRAIN_LR or off >= 1e-3:
+        fail("the fp32 training step's layer weights disagree between the routes")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py; run it from a checkout")
@@ -625,21 +964,30 @@ def main() -> None:
     log(f"[env] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    reports = build.build_all(["kron_gather", "kron_matmul", "paged_attention"])
+    reports = build.build_all(["kron_gather", "kron_matmul", "paged_attention",
+                               "kron_logits"])
     log(f"[env] kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for name, out in reports.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    kernels = check_kernels(torch, dev) + check_paged_kernels(torch, dev)
+    kernels = (check_kernels(torch, dev) + check_paged_kernels(torch, dev)
+               + check_training_kernels(torch, dev))
     params = init_params(torch, dev)
     launches = drive_main_path(torch, dev, params)  # slice 1's path
     engine_launches = drive_engine(torch, dev, params)  # slice 2's path, run (a)
     check_paged_step_fp32(torch, dev, params)
+    del params
+    torch.cuda.empty_cache()
+    train_launches, state = drive_training(torch, dev)  # slice 3's path
+    check_train_step_fp32(torch, dev, state)
     for e in kernels:
-        path = engine_launches if e["name"].startswith("paged") else launches
-        e["launches"] = path[e["name"]]
+        if e["name"] in train_launches:
+            e["launches"] = train_launches[e["name"]]
+        else:
+            path = engine_launches if e["name"].startswith("paged") else launches
+            e["launches"] = path[e["name"]]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

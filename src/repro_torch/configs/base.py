@@ -1,4 +1,5 @@
-"""Model config dataclass (the fields the ported serving path reads).
+"""Model config dataclass (the fields the ported serving and training paths
+read).
 
 Field names and defaults are those of ``repro.configs.base.ModelConfig``;
 ``dtype`` and ``param_dtype`` are torch dtypes. Fields of slices not yet
@@ -48,6 +49,8 @@ class ModelConfig:
     head_kind: str = "kron"
     head_order: int = 2
     head_rank: int = 32
+    # t1 digits per vocab tile of the CE's plain route (core/logits.py)
+    head_vocab_tile: int = 4
     # hand-written kernels for lookup / head: None = auto (the kernel for
     # CUDA tensors, the plain version for CPU tensors); False = the plain
     # version everywhere, because the caller asked for it
@@ -57,6 +60,10 @@ class ModelConfig:
     param_dtype: Any = torch.float32
 
     attn_chunk: int = 1024  # flash-attention KV-chunk size
+    # activation checkpointing of the training forward, per layer: "none",
+    # or "full" / "dots" (both a per-layer torch.utils.checkpoint; see
+    # models/transformer.forward)
+    remat: str = "dots"
 
     # serving substrate (serve/engine.py + serve/cache.py): ``page_size`` is
     # the token granularity of the paged KV pools; ``prefill_chunk`` is how
@@ -79,6 +86,8 @@ class ModelConfig:
                 f"layer kinds {self.layer_pattern} are not ported yet (only 'attn')")
         if self.mlp_type != "swiglu":
             raise NotImplementedError(f"mlp_type {self.mlp_type!r} is not ported yet")
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat policy {self.remat!r}")
 
     @property
     def q_heads_per_kv(self) -> int:
@@ -105,6 +114,7 @@ def head_for(cfg: ModelConfig) -> HeadConfig:
         kind=cfg.head_kind,
         order=cfg.head_order,
         rank=cfg.head_rank,
+        vocab_tile=cfg.head_vocab_tile,
         dtype=cfg.param_dtype,
         use_kernel=cfg.use_kernels,
     )

@@ -7,7 +7,8 @@ stored as ``order`` factor stacks of shape ``(rank, q_j, t_j)``
 
   * :func:`init`          — factor stacks from a ``torch.Generator``;
   * :func:`apply_vector`  — lazy column extraction ``ids -> F[:, ids]`` (an
-                            embedding lookup) through ``kron_gather``;
+                            embedding lookup) through ``kron_gather``,
+                            differentiable in the factors;
   * :func:`apply_matrix`  — ``x @ F`` through ``kron_matmul`` (the kron head);
   * :func:`materialize`   — the dense table, for tests only.
 

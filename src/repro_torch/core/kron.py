@@ -64,7 +64,7 @@ def kron_vectors_tree(
     carries up unchanged. The tree has one home, the plain kernel math
     ``kernels.common.tree_forward``."""
     from repro_torch.kernels.common import tree_forward
-    return tree_forward(vs, use_layernorm, eps)
+    return tree_forward(vs, use_layernorm, eps)[0]
 
 
 def factorize_dim(dim: int, order: int) -> tuple[int, ...]:

@@ -1,8 +1,11 @@
-// Fused word2ketXS row lookup for Hopper (sm_90a), order-2 operators.
+// Fused word2ketXS row lookup and its backward for Hopper (sm_90a), order-2
+// operators.
 //
 // Replaces: src/repro/kernels/kron_gather/kron_gather.py::_fwd_kernel (the
-// forward leg without LN statistics, not quantized), reached through
-// _gather_call / kron_gather_pallas.
+// forward legs without and with LN statistics, not quantized), reached
+// through _gather_call / kron_gather_pallas and kron_gather_fwd_pallas, and
+// ::_bwd_kernel, reached through kron_gather_bwd_pallas (the backward kernel
+// is described below the forward one).
 //
 // Computes, per id n:  (d1, d2) = mixed-radix digits of ids[n] over (t1, t2);
 //   a_k = F1[k, :, d1] (q1),  b_k = F2[k, :, d2] (q2)  for each rank k;
@@ -37,6 +40,10 @@
 //  * An id outside [0, t1*t2) gives a row of NaN and reads nothing.
 //  * Writes only the first out_cols columns (the caller's embed_dim), so the
 //    output is contiguous with no slice afterwards.
+//  * The stats leg (training) writes the root node's moments as they are
+//    taken, stats[n, 0, k] = mean_k and stats[n, 1, k] = rstd_k (the
+//    (N, 2*nodes, rank) layout of the Pallas kernel with one node); the
+//    serving leg passes no stats pointer and writes none.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,7 +76,7 @@ __global__ void __launch_bounds__(kThreads)
 kron_gather2_kernel(const int32_t* __restrict__ ids,
                     const float* __restrict__ f1, const float* __restrict__ f2,
                     int rank, int q1, int t1, int q2, int t2, int use_ln, float eps,
-                    float* __restrict__ out, int out_cols) {
+                    float* __restrict__ out, int out_cols, float* __restrict__ stats) {
   extern __shared__ float smem[];
   float* a = smem;                  // [rank][q1], scaled by rstd_k under LN
   float* b = a + rank * q1;         // [rank][q2]
@@ -80,6 +87,9 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
   const int id = ids[n];
   if (id < 0 || id >= t1 * t2) {
     for (int e = threadIdx.x; e < out_cols; e += blockDim.x) row[e] = nanf("");
+    if (stats != nullptr)
+      for (int e = threadIdx.x; e < 2 * rank; e += blockDim.x)
+        stats[static_cast<size_t>(n) * 2 * rank + e] = nanf("");
     return;
   }
   const int d1 = id / t2;
@@ -120,7 +130,13 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
     const float rstd = rsqrtf(fmaxf(ez2 - mean * mean, 0.f) + eps);
     // each lane rescales exactly the entries it summed above
     for (int i = lane; i < q1; i += 32) a[k * q1 + i] *= rstd;
-    if (lane == 0) shift[k] = rstd * mean;
+    if (lane == 0) {
+      shift[k] = rstd * mean;
+      if (stats != nullptr) {
+        stats[(static_cast<size_t>(n) * 2) * rank + k] = mean;
+        stats[(static_cast<size_t>(n) * 2 + 1) * rank + k] = rstd;
+      }
+    }
   }
   __syncthreads();
 
@@ -136,16 +152,172 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward: dL/dF_j of the lookup.
+//
+// Replaces: src/repro/kernels/kron_gather/kron_gather.py::_bwd_kernel.
+//
+// Computes, per id n with digits (d1, d2), u_k = F1[k, :, d1] (q1) and
+// v_k = F2[k, :, d2] (q2), the output cotangent row D = g[n] read as
+// (q1, q2) (zero past g_cols) and, under LN, the saved root moments
+// (mu_k, rstd_k) of the forward's stats leg, the separable root split of
+// kernels/common.tree_backward:
+//   Dv[k, m] = sum_j D[m, j] v_k[j],   Du[k, j] = sum_m D[m, j] u_k[m]
+//   mbar = mean(D), udv_k = sum_m u_k[m] Dv[k, m],
+//   c_k = rstd_k (udv_k - mu_k P mbar) / P
+//   du_k = rstd_k ((Dv_k - mbar sum v_k) - c_k rstd_k (u_k sum v_k^2 - mu_k sum v_k))
+//   dv_k = rstd_k ((Du_k - mbar sum u_k) - c_k rstd_k (v_k sum u_k^2 - mu_k sum u_k))
+// (du = Dv, dv = Du without LN), then dF1[k, m, d1] += du_k[m] and
+// dF2[k, j, d2] += dv_k[j]. No (rank, q1*q2) tensor is built.
+//
+// What bounds it on the H100: memory. At N = 2,048 ids of the qwen3-1.7b
+// embedding it reads g (16.8 MB), the stats and the touched factor columns
+// and writes the 4.8 MB of dF: about 22 MB, 6.6 us at 3.35 TB/s; the
+// arithmetic is 0.5 GFLOP.
+//
+// Design:
+//  * One block per id: the row of g, both gathered columns and the two
+//    contractions live in shared memory; u and v rows are padded by one
+//    float, so the rank-major thread mapping (one rank per lane) reads them
+//    without bank conflicts while D is a broadcast.
+//  * The TPU scatters dF as one_hot^T @ dleaf into factor-sized sums resident
+//    in VMEM across its sequential grid. Blocks here run in parallel, so the
+//    scatter is an fp32 atomicAdd into dF (zeroed by the caller; 4.8 MB,
+//    resident in L2). The order of the additions changes from run to run,
+//    so the last bits of dF do too (an id repeated in the batch adds to the
+//    same columns from several blocks).
+//  * An id outside [0, t1*t2) contributes nothing.
+__global__ void __launch_bounds__(kThreads)
+kron_gather2_bwd_kernel(const int32_t* __restrict__ ids, const float* __restrict__ g,
+                        int g_cols, const float* __restrict__ stats,
+                        const float* __restrict__ f1, const float* __restrict__ f2,
+                        int rank, int q1, int t1, int q2, int t2, int use_ln,
+                        float* __restrict__ df1, float* __restrict__ df2) {
+  extern __shared__ float smem[];
+  const int us = q1 + 1, vs = q2 + 1, P = q1 * q2;
+  float* u = smem;                  // [rank][q1 + 1]
+  float* v = u + rank * us;         // [rank][q2 + 1]
+  float* D = v + rank * vs;         // [q1][q2]
+  float* Dv = D + P;                // [rank][q1]
+  float* Du = Dv + rank * q1;       // [rank][q2]
+  float* sc = Du + rank * q2;       // [7][rank]: su1 su2 sv1 sv2 udv mu rstd
+  float* red = sc + 7 * rank;       // [32]: warp partial sums of D
+
+  const int n = blockIdx.x;
+  const int id = ids[n];
+  if (id < 0 || id >= t1 * t2) return;
+  const int d1 = id / t2;
+  const int d2 = id - d1 * t2;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+
+  for (int e = threadIdx.x; e < rank * q1; e += blockDim.x)
+    u[(e / q1) * us + e % q1] = f1[static_cast<size_t>(e) * t1 + d1];
+  for (int e = threadIdx.x; e < rank * q2; e += blockDim.x)
+    v[(e / q2) * vs + e % q2] = f2[static_cast<size_t>(e) * t2 + d2];
+  float part = 0.f;
+  const float* grow = g + static_cast<size_t>(n) * g_cols;
+  for (int e = threadIdx.x; e < P; e += blockDim.x) {
+    const float val = e < g_cols ? grow[e] : 0.f;
+    D[e] = val;
+    part += val;
+  }
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  if (lane == 0) red[warp] = part;
+  if (use_ln)
+    for (int k = threadIdx.x; k < rank; k += blockDim.x) {
+      sc[5 * rank + k] = stats[(static_cast<size_t>(n) * 2) * rank + k];
+      sc[6 * rank + k] = stats[(static_cast<size_t>(n) * 2 + 1) * rank + k];
+    }
+  __syncthreads();
+
+  // Dv[k, m] and Du[k, j], one rank per lane
+  for (int e = threadIdx.x; e < rank * q1; e += blockDim.x) {
+    const int k = e % rank, m = e / rank;
+    float acc = 0.f;
+    for (int j = 0; j < q2; ++j) acc = fmaf(D[m * q2 + j], v[k * vs + j], acc);
+    Dv[k * q1 + m] = acc;
+  }
+  for (int e = threadIdx.x; e < rank * q2; e += blockDim.x) {
+    const int k = e % rank, j = e / rank;
+    float acc = 0.f;
+    for (int m = 0; m < q1; ++m) acc = fmaf(D[m * q2 + j], u[k * us + m], acc);
+    Du[k * q2 + j] = acc;
+  }
+  __syncthreads();
+
+  float mbar = 0.f;
+  if (use_ln) {
+    for (int w = 0; w < nwarps; ++w) mbar += red[w];
+    mbar /= static_cast<float>(P);
+    // per-rank sums, one warp per rank
+    for (int k = warp; k < rank; k += nwarps) {
+      float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f, ud = 0.f;
+      for (int m = lane; m < q1; m += 32) {
+        const float x = u[k * us + m];
+        a1 += x;
+        a2 = fmaf(x, x, a2);
+        ud = fmaf(x, Dv[k * q1 + m], ud);
+      }
+      for (int j = lane; j < q2; j += 32) {
+        const float x = v[k * vs + j];
+        b1 += x;
+        b2 = fmaf(x, x, b2);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+        a2 += __shfl_xor_sync(0xffffffffu, a2, o);
+        b1 += __shfl_xor_sync(0xffffffffu, b1, o);
+        b2 += __shfl_xor_sync(0xffffffffu, b2, o);
+        ud += __shfl_xor_sync(0xffffffffu, ud, o);
+      }
+      if (lane == 0) {
+        sc[k] = a1;
+        sc[rank + k] = a2;
+        sc[2 * rank + k] = b1;
+        sc[3 * rank + k] = b2;
+        sc[4 * rank + k] = ud;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int e = threadIdx.x; e < rank * q1; e += blockDim.x) {
+    const int k = e / q1, m = e - k * q1;
+    float du = Dv[e];
+    if (use_ln) {
+      const float mu = sc[5 * rank + k], rstd = sc[6 * rank + k];
+      const float sv1 = sc[2 * rank + k], sv2 = sc[3 * rank + k];
+      const float c = rstd * (sc[4 * rank + k] - mu * P * mbar) / P;
+      du = rstd * ((du - mbar * sv1) - c * rstd * (u[k * us + m] * sv2 - mu * sv1));
+    }
+    atomicAdd(df1 + static_cast<size_t>(e) * t1 + d1, du);
+  }
+  for (int e = threadIdx.x; e < rank * q2; e += blockDim.x) {
+    const int k = e / q2, j = e - k * q2;
+    float dv = Du[e];
+    if (use_ln) {
+      const float mu = sc[5 * rank + k], rstd = sc[6 * rank + k];
+      const float su1 = sc[k], su2 = sc[rank + k];
+      const float c = rstd * (sc[4 * rank + k] - mu * P * mbar) / P;
+      dv = rstd * ((dv - mbar * su1) - c * rstd * (v[k * vs + j] * su2 - mu * su1));
+    }
+    atomicAdd(df2 + static_cast<size_t>(e) * t2 + d2, dv);
+  }
+}
+
 }  // namespace
 
 extern "C" long long w2k_kron_gather2_smem_bytes(int rank, int q1, int q2) {
   return static_cast<long long>(rank) * (q1 + q2 + 1) * static_cast<long long>(sizeof(float));
 }
 
+// stats: nullptr for the serving leg, else (n_ids, 2, rank) fp32 (LN on)
 extern "C" int w2k_kron_gather2(const int32_t* ids, int n_ids, const float* f1,
                                 const float* f2, int rank, int q1, int t1, int q2,
                                 int t2, int use_ln, float eps, float* out,
-                                int out_cols, void* stream) {
+                                int out_cols, float* stats, void* stream) {
   if (n_ids <= 0) return 0;
   const size_t smem = static_cast<size_t>(w2k_kron_gather2_smem_bytes(rank, q1, q2));
   // raise the dynamic shared-memory cap only when a shape needs more than
@@ -159,7 +331,35 @@ extern "C" int w2k_kron_gather2(const int32_t* ids, int n_ids, const float* f1,
     smem_cap = smem;
   }
   kron_gather2_kernel<<<n_ids, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ids, f1, f2, rank, q1, t1, q2, t2, use_ln, eps, out, out_cols);
+      ids, f1, f2, rank, q1, t1, q2, t2, use_ln, eps, out, out_cols, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" long long w2k_kron_gather2_bwd_smem_bytes(int rank, int q1, int q2) {
+  const long long floats = static_cast<long long>(rank) * (q1 + 1 + q2 + 1 + q1 + q2 + 7) +
+                           static_cast<long long>(q1) * q2 + 32;
+  return floats * static_cast<long long>(sizeof(float));
+}
+
+// g: (n_ids, g_cols) fp32; stats: (n_ids, 2, rank) fp32 under LN, else
+// ignored; df1, df2: zeroed (rank, q_j, t_j) fp32, accumulated into
+extern "C" int w2k_kron_gather2_bwd(const int32_t* ids, int n_ids, const float* g,
+                                    int g_cols, const float* stats, const float* f1,
+                                    const float* f2, int rank, int q1, int t1, int q2,
+                                    int t2, int use_ln, float* df1, float* df2,
+                                    void* stream) {
+  if (n_ids <= 0) return 0;
+  const size_t smem = static_cast<size_t>(w2k_kron_gather2_bwd_smem_bytes(rank, q1, q2));
+  static size_t smem_cap = 48 * 1024;
+  if (smem > smem_cap) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kron_gather2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_cap = smem;
+  }
+  kron_gather2_bwd_kernel<<<n_ids, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ids, g, g_cols, stats, f1, f2, rank, q1, t1, q2, t2, use_ln, df1, df2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,15 @@
 """Hand-written Hopper kernels of the port, and their route.
 
 kron_gather  — fused word2ketXS lookup (digits, column gather, LN kron
-               tree, rank sum), CUDA C++ in ``csrc/kron_gather.cu``
+               tree, rank sum), with a stats leg and a dedicated backward,
+               CUDA C++ in ``csrc/kron_gather.cu``
 kron_matmul  — rank-folded Kronecker chain ``x·(Σ_k ⊗_j F_jk)`` (the kron
                head), CUDA C++ in ``csrc/kron_matmul.cu``
-common       — the plain torch math both kernels are held against
+kron_logits  — fused Kronecker-head cross-entropy, forward and backward,
+               CUDA C++ in ``csrc/kron_logits.cu``
+flash_attn   — split-KV paged decode read and its combine, CUDA C++ in
+               ``csrc/paged_attention.cu``
+common       — the plain torch math the kernels are held against
 build        — nvcc build of ``csrc/*.cu`` into ``build/`` and ctypes load
 
 Each kernel package holds ``ref.py`` (the plain PyTorch version) and

@@ -1,8 +1,13 @@
-"""Wrapper of the fused word2ketXS lookup kernel (``csrc/kron_gather.cu``).
+"""Wrappers of the fused word2ketXS lookup kernels (``csrc/kron_gather.cu``).
 
 :func:`kron_gather` routes by the tensor (``kernels.kernel_route``): a CUDA
-tensor launches the CUDA kernel, a CPU tensor runs :func:`kron_gather_ref`,
-the plain version. ``launches`` counts kernel launches and nothing else.
+tensor launches the CUDA kernels, a CPU tensor runs the plain versions in
+``ref.py``. When a gradient is needed it goes through :class:`KronGather`,
+a ``torch.autograd.Function`` whose forward takes the stats leg (the lookup
+that also writes the per-node LN statistics) and whose backward is the
+dedicated backward kernel; otherwise the forward-only leg runs.
+
+``launches`` counts kernel launches per leg and nothing else.
 """
 
 from __future__ import annotations
@@ -15,12 +20,14 @@ import torch
 
 from repro_torch.kernels import build, kernel_route
 from repro_torch.kernels.common import LN_EPS
-from repro_torch.kernels.kron_gather.ref import kron_gather_ref
+from repro_torch.kernels.kron_gather.ref import (kron_gather_bwd_ref, kron_gather_fwd_ref,
+                                                 kron_gather_ref)
 
-__all__ = ["kron_gather", "kron_gather_cuda", "kron_gather_ref", "check_inputs",
-           "launches"]
+__all__ = ["kron_gather", "kron_gather_cuda", "kron_gather_bwd_cuda", "KronGather",
+           "kron_gather_ref", "kron_gather_fwd_ref", "kron_gather_bwd_ref",
+           "check_inputs", "launches"]
 
-launches = 0
+launches = {"kron_gather_fwd": 0, "kron_gather_fwd_stats": 0, "kron_gather_bwd": 0}
 _SMEM_LIMIT = 227 * 1024
 _lib: Optional[ctypes.CDLL] = None
 
@@ -31,10 +38,15 @@ def _load() -> ctypes.CDLL:
         lib = build.load("kron_gather")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.w2k_kron_gather2.argtypes = [p, i, p, p, i, i, i, i, i, i,
-                                         ctypes.c_float, p, i, p]
+                                         ctypes.c_float, p, i, p, p]
         lib.w2k_kron_gather2.restype = i
         lib.w2k_kron_gather2_smem_bytes.argtypes = [i, i, i]
         lib.w2k_kron_gather2_smem_bytes.restype = ctypes.c_longlong
+        lib.w2k_kron_gather2_bwd.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i,
+                                             p, p, p]
+        lib.w2k_kron_gather2_bwd.restype = i
+        lib.w2k_kron_gather2_bwd_smem_bytes.argtypes = [i, i, i]
+        lib.w2k_kron_gather2_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.w2k_error_string.argtypes = [i]
         lib.w2k_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -43,7 +55,7 @@ def _load() -> ctypes.CDLL:
 
 def check_inputs(factors: Sequence[torch.Tensor], ids: torch.Tensor,
                  embed_dim: int) -> None:
-    """What the CUDA kernel takes: order-2 fp32 contiguous ``(rank, q_j,
+    """What the CUDA kernels take: order-2 fp32 contiguous ``(rank, q_j,
     t_j)`` stacks of one rank, 1-D contiguous int32 ids, everything on the
     ids' device, ``embed_dim <= prod q``; raises otherwise."""
     if len(factors) != 2:
@@ -68,14 +80,25 @@ def check_inputs(factors: Sequence[torch.Tensor], ids: torch.Tensor,
         raise ValueError("prod t must fit in int32 ids")
 
 
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.w2k_error_string(rc).decode()} (cudaError {rc})")
+
+
 def kron_gather_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
-                     embed_dim: int, use_layernorm: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel: ids (N,) int32 -> (N, embed_dim) fp32. Ids
-    outside ``[0, prod t)`` give rows of NaN."""
-    global launches
+                     embed_dim: int, use_layernorm: bool = True,
+                     with_stats: bool = False):
+    """Launch the CUDA lookup: ids (N,) int32 -> (N, embed_dim) fp32. Ids
+    outside ``[0, prod t)`` give rows of NaN. With ``with_stats`` (LN on)
+    also returns the root node's LN statistics ``(N, 2, rank)`` fp32
+    (``[:, 0]`` mean, ``[:, 1]`` rstd) as ``(out, stats)``."""
     if ids.device.type != "cuda":
         raise ValueError(f"kron_gather_cuda needs CUDA tensors, got {ids.device}")
     check_inputs(factors, ids, embed_dim)
+    if with_stats and not use_layernorm:
+        raise ValueError("the stats leg needs LayerNorm on: without it there are "
+                         "no statistics to save")
     f1, f2 = factors
     rank, q1, t1 = f1.shape
     _, q2, t2 = f2.shape
@@ -86,26 +109,102 @@ def kron_gather_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
                          f"(> {_SMEM_LIMIT}) at rank {rank}, q ({q1}, {q2})")
     n = ids.shape[0]
     out = torch.empty((n, embed_dim), dtype=torch.float32, device=ids.device)
-    if n == 0:
+    stats = (torch.empty((n, 2, rank), dtype=torch.float32, device=ids.device)
+             if with_stats else None)
+    if n > 0:
+        with torch.cuda.device(ids.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.w2k_kron_gather2(ids.data_ptr(), n, f1.data_ptr(), f2.data_ptr(),
+                                      rank, q1, t1, q2, t2, int(use_layernorm), LN_EPS,
+                                      out.data_ptr(), embed_dim,
+                                      stats.data_ptr() if with_stats else None, stream)
+        _raise_on(lib, rc, "kron_gather")
+        launches["kron_gather_fwd_stats" if with_stats else "kron_gather_fwd"] += 1
+    return (out, stats) if with_stats else out
+
+
+def kron_gather_bwd_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
+                         g: torch.Tensor, stats: Optional[torch.Tensor],
+                         use_layernorm: bool = True) -> list[torch.Tensor]:
+    """Launch the CUDA backward: ``dL/dF_j`` fp32 from the output cotangent
+    ``g (N, embed_dim)`` and, with LN, the stats of the forward. The factor
+    scatter is fp32 ``atomicAdd``, so the sums' order (and their last bits)
+    changes from run to run."""
+    if ids.device.type != "cuda":
+        raise ValueError(f"kron_gather_bwd_cuda needs CUDA tensors, got {ids.device}")
+    check_inputs(factors, ids, g.shape[-1])
+    n = ids.shape[0]
+    rank = factors[0].shape[0]
+    if g.dtype != torch.float32 or g.dim() != 2 or g.shape[0] != n:
+        raise ValueError(f"g must be ({n}, embed_dim) fp32, got {g.dtype} {tuple(g.shape)}")
+    if use_layernorm and (stats is None or stats.shape != (n, 2, rank)
+                          or stats.dtype != torch.float32):
+        raise ValueError(f"the LayerNorm backward needs fp32 stats ({n}, 2, {rank})")
+    f1, f2 = factors
+    _, q1, t1 = f1.shape
+    _, q2, t2 = f2.shape
+    lib = _load()
+    smem = lib.w2k_kron_gather2_bwd_smem_bytes(rank, q1, q2)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"kron_gather backward needs {smem} B of shared memory per "
+                         f"block (> {_SMEM_LIMIT}) at rank {rank}, q ({q1}, {q2})")
+    g = g.contiguous()
+    stats = stats.contiguous() if use_layernorm else None
+    df1 = torch.zeros_like(f1)
+    df2 = torch.zeros_like(f2)
+    if n > 0:
+        with torch.cuda.device(ids.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.w2k_kron_gather2_bwd(
+                ids.data_ptr(), n, g.data_ptr(), g.shape[1],
+                stats.data_ptr() if use_layernorm else None, f1.data_ptr(), f2.data_ptr(),
+                rank, q1, t1, q2, t2, int(use_layernorm), df1.data_ptr(), df2.data_ptr(),
+                stream)
+        _raise_on(lib, rc, "kron_gather backward")
+        launches["kron_gather_bwd"] += 1
+    return [df1, df2]
+
+
+class KronGather(torch.autograd.Function):
+    """The lookup differentiable in the factors: forward through the stats
+    leg, backward through the dedicated backward (the CUDA kernels on the
+    kernel route, ``kron_gather_fwd_ref`` / ``kron_gather_bwd_ref``
+    otherwise). Ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ids, embed_dim, use_layernorm, on_kernel, *factors):
+        if on_kernel:
+            res = kron_gather_cuda(factors, ids, embed_dim, use_layernorm,
+                                   with_stats=use_layernorm)
+            out, stats = res if use_layernorm else (res, None)
+        else:
+            out, stats = kron_gather_fwd_ref(factors, ids, embed_dim=embed_dim,
+                                             use_layernorm=use_layernorm)
+        ctx.meta = (use_layernorm, on_kernel)
+        ctx.save_for_backward(ids, stats, *factors)
         return out
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.w2k_kron_gather2(ids.data_ptr(), n, f1.data_ptr(), f2.data_ptr(),
-                                  rank, q1, t1, q2, t2, int(use_layernorm), LN_EPS,
-                                  out.data_ptr(), embed_dim, stream)
-    if rc != 0:
-        raise RuntimeError(f"kron_gather launch failed: "
-                           f"{lib.w2k_error_string(rc).decode()} (cudaError {rc})")
-    launches += 1
-    return out
+
+    @staticmethod
+    def backward(ctx, g):
+        use_layernorm, on_kernel = ctx.meta
+        ids, stats, *factors = ctx.saved_tensors
+        if on_kernel:
+            dfs = kron_gather_bwd_cuda(factors, ids, g.float(), stats, use_layernorm)
+        else:
+            dfs = kron_gather_bwd_ref(factors, ids, g, stats, use_layernorm=use_layernorm)
+        return (None, None, None, None, *[df.to(f.dtype) for df, f in zip(dfs, factors)])
 
 
 def kron_gather(factors: Sequence[torch.Tensor], ids: torch.Tensor, embed_dim: int,
                 use_layernorm: bool = True,
                 use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """ids (N,) -> (N, embed_dim) fp32: the CUDA kernel for CUDA ids, the
-    plain version for CPU ids or ``use_kernel=False``."""
-    if kernel_route(use_kernel, ids):
+    """ids (N,) -> (N, embed_dim), at least fp32: the CUDA kernels for CUDA
+    ids, the plain versions for CPU ids or ``use_kernel=False``;
+    differentiable in the factors."""
+    on_kernel = kernel_route(use_kernel, ids)
+    if torch.is_grad_enabled() and any(f.requires_grad for f in factors):
+        return KronGather.apply(ids, embed_dim, use_layernorm, on_kernel, *factors)
+    if on_kernel:
         return kron_gather_cuda(factors, ids, embed_dim, use_layernorm)
     return kron_gather_ref(factors, ids, embed_dim=embed_dim,
                            use_layernorm=use_layernorm).float()

@@ -1,5 +1,5 @@
-"""Unified model API of the port: init / cache / serve / chunked prefill
-(torch port of the LM branch of ``repro.models.model``).
+"""Unified model API of the port: init / loss / cache / serve / chunked
+prefill (torch port of the LM branch of ``repro.models.model``).
 
 Every entry point that creates tensors takes an explicit ``device``
 (default ``"cuda"``) and raises when the card is missing.
@@ -15,7 +15,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import cache as SC
 from repro_torch.serve import decode as D
 
-__all__ = ["init_params", "init_cache", "serve_step_fn", "prefill_chunk_fn",
+__all__ = ["init_params", "loss_fn", "init_cache", "serve_step_fn", "prefill_chunk_fn",
            "param_count"]
 
 
@@ -26,6 +26,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     return T.init_lm(gen, cfg, dev)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+    """Training loss of the LM: (loss, metrics) of :func:`transformer.lm_loss`."""
+    return T.lm_loss(params, cfg, batch)
 
 
 def param_count(params) -> int:

@@ -14,6 +14,25 @@ online softmax in another summation order); with bf16/fp16 pools atol 1e-2
 + rtol 1e-3, because a probability rounded to 16 bits before the PV product
 can land one unit (2^-9 at 0.5 in bf16) apart when its fp32 score differs
 in the last bit, times |v| up to about 5.
+
+The training legs: the kron_gather stats leg atol 1e-5 + rtol 1e-4 on the
+moments (the kernel takes them by the separable formula); its backward
+atol 1e-5·max|dF| + rtol 1e-4 (fp32 atomicAdd in no fixed order over up
+to N rows per factor column). The fused CE forward: atol 1e-4 + rtol 1e-5
+on the losses (exponential sums over up to 152,100 columns in another
+order), atol 1e-5 + rtol 1e-5 on m, rtol 2e-4 on l, which carries the
+logits' absolute rounding (about 1e-4 at |logit| ~ 100 with these
+factors). Its backward: atol 1e-4·max + rtol 1e-4 on dh and dF, whose
+entries are sums over every vocabulary column (and token) of softmax −
+onehot terms that cancel; against a float64 backward, within four times
+the fp32 plain version's own distance or 1e-5 of the largest entry (the
+kernel sums over its 195 columns and 64 token blocks in another order);
+the kernel's two runs are equal bit for bit (no atomics). The smoke
+training steps: per-step losses within atol 1e-5 + rtol 1e-4 of the plain
+route; parameters after three AdamW steps all
+within 2·lr per step (AdamW normalizes each update, so a near-zero gradient
+that differs in its last bits can move a parameter by up to lr either way)
+and 99.9% of them within 1e-5.
 """
 
 import dataclasses
@@ -23,11 +42,15 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke
+from repro_torch.data.synthetic import DataConfig, batch_at
 from repro_torch.kernels.flash_attn import ops as FA
 from repro_torch.kernels.kron_gather import ops as G
+from repro_torch.kernels.kron_logits import ops as CE
 from repro_torch.kernels.kron_matmul import ops as M
 from repro_torch.models import model as MD
+from repro_torch.optim.adamw import AdamWConfig, tree_leaves
 from repro_torch.serve.cache import identity_ptab
+from repro_torch.train.step import TrainConfig, make_train_step, with_params
 
 pytestmark = pytest.mark.cuda
 
@@ -57,10 +80,10 @@ def test_kron_gather_kernel_matches_plain(dev, rank, q, t, n, ln):
     ids = torch.randint(0, total, (n,), device=dev, dtype=torch.int32)
     ids[0], ids[-1] = 0, total - 1
     dim = math.prod(q) - 1
-    before = G.launches
+    before = G.launches["kron_gather_fwd"]
     got = G.kron_gather(f, ids, dim, ln)
     torch.cuda.synchronize()
-    assert G.launches == before + 1
+    assert G.launches["kron_gather_fwd"] == before + 1
     want = G.kron_gather(f, ids, dim, ln, use_kernel=False)
     assert got.shape == (n, dim) and got.is_contiguous()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
@@ -188,3 +211,103 @@ def test_smoke_paged_serving_kernel_route_matches_plain(dev):
         assert launched == (cfg.num_layers if c.use_kernels is None else 0)
         outs.append(step_logits)
     torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-5)
+
+
+def _close_scaled(got, want, rtol=1e-4, scale=1e-5):
+    """atol scale·max|want| + rtol (sums in another order, some by atomics)."""
+    torch.testing.assert_close(got, want, atol=scale * want.abs().max().item(), rtol=rtol)
+
+
+@pytest.mark.parametrize("rank,q,t,n,ln", GATHER + [(32, (64, 32), (390, 390), 2048, True)])
+def test_kron_gather_training_legs_match_plain(dev, rank, q, t, n, ln):
+    f = _factors(dev, rank, q, t)
+    total = math.prod(t)
+    ids = torch.randint(0, total, (n,), device=dev, dtype=torch.int32)
+    ids[0], ids[-1], ids[2] = 0, total - 1, ids[1]  # a repeated id
+    dim = math.prod(q) - (0 if n == 2048 else 1)
+    before = dict(G.launches)
+    res = G.kron_gather_cuda(f, ids, dim, ln, with_stats=ln)
+    out, stats = res if ln else (res, None)
+    want_out, want_stats = G.kron_gather_fwd_ref(f, ids, embed_dim=dim, use_layernorm=ln)
+    torch.testing.assert_close(out, want_out, atol=1e-4, rtol=1e-5)
+    if ln:
+        torch.testing.assert_close(stats, want_stats, atol=1e-5, rtol=1e-4)
+    g = torch.randn((n, dim), device=dev)
+    got = G.kron_gather_bwd_cuda(f, ids, g, stats, ln)
+    torch.cuda.synchronize()
+    want = G.kron_gather_bwd_ref(f, ids, g, want_stats, use_layernorm=ln)
+    for a, b in zip(got, want):
+        _close_scaled(a, b)
+    assert G.launches["kron_gather_bwd"] == before["kron_gather_bwd"] + 1
+    key = "kron_gather_fwd_stats" if ln else "kron_gather_fwd"
+    assert G.launches[key] == before[key] + 1
+
+
+# (rank, q, t, vocab, N, h width)
+CE_CASES = [(2, (8, 8), (32, 32), 1000, 37, 64), (3, (8, 4), (17, 13), 200, 70, 30),
+            (32, (64, 32), (390, 390), 151936, 2048, 2048)]
+
+
+@pytest.mark.parametrize("rank,q,t,vocab,n,width", CE_CASES)
+def test_kron_ce_kernels_match_plain(dev, rank, q, t, vocab, n, width):
+    f = _factors(dev, rank, q, t, seed=1)
+    h = torch.randn((n, width), device=dev)
+    y = torch.randint(0, vocab, (n,), device=dev, dtype=torch.int32)
+    y[0], y[-1] = 0, vocab - 1
+    before = dict(CE.launches)
+    loss, m, l = CE.kron_ce_fwd_cuda(f, h, y, vocab)
+    want_loss, want_m, want_l = CE.kron_ce_fwd_ref(f, h, y, vocab, 4)
+    torch.testing.assert_close(loss, want_loss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(m, want_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, want_l, atol=0.0, rtol=2e-4)
+    g = (torch.rand(n, device=dev) + 0.5) / n
+    dfs, dh = CE.kron_ce_bwd_cuda(f, h, y, m, l, g, vocab)
+    torch.cuda.synchronize()
+    want_dfs, want_dh = CE.kron_ce_bwd_ref(f, h, y, m, l, g, vocab, 4)
+    assert dh.shape == h.shape
+    for a, b in zip([dh, *dfs], [want_dh, *want_dfs]):
+        _close_scaled(a, b, scale=1e-4)
+    # the kernel is about as close to a float64 backward as the fp32 plain one
+    exact_dfs, exact_dh = CE.kron_ce_bwd_ref([x.double() for x in f], h.double(), y,
+                                             m.double(), l.double(), g.double(), vocab, 4)
+    for a, b, e in zip([dh, *dfs], [want_dh, *want_dfs], [exact_dh, *exact_dfs]):
+        err_kernel = (a.double() - e).abs().max().item()
+        err_plain = (b.double() - e).abs().max().item()
+        assert err_kernel <= max(4 * err_plain, 1e-5 * e.abs().max().item())
+    again = CE.kron_ce_bwd_cuda(f, h, y, m, l, g, vocab)
+    assert torch.equal(again[1], dh) and all(torch.equal(a, b) for a, b in zip(again[0], dfs))
+    assert CE.launches == {"kron_ce_fwd": before["kron_ce_fwd"] + 1,
+                           "kron_ce_bwd": before["kron_ce_bwd"] + 2}
+
+
+def test_kron_ce_refuses_unsupported_heads(dev):
+    x, y = torch.zeros(3, 48, device=dev), torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):
+        CE.kron_ce_fwd_cuda(_factors(dev, 2, (8, 6), (5, 5)), x, y, 25)
+
+
+def test_smoke_training_kernel_route_matches_plain(dev):
+    cfg = get_smoke("qwen3-1.7b", dtype=torch.float32)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+    runs = []
+    for c in (cfg, dataclasses.replace(cfg, use_kernels=False)):
+        state = with_params(MD.init_params(c, seed=0, device=dev))
+        step = make_train_step(c, tcfg)
+        before = {**G.launches, **CE.launches}
+        losses = []
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dcfg, i).items()}
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        after = {**G.launches, **CE.launches}
+        runs.append((torch.stack(losses), list(tree_leaves(state["params"])),
+                     {k: after[k] - before[k] for k in after}))
+    (l_k, p_k, n_k), (l_p, p_p, n_p) = runs
+    assert n_k == {"kron_gather_fwd": 0, "kron_gather_fwd_stats": 3, "kron_gather_bwd": 3,
+                   "kron_ce_fwd": 3, "kron_ce_bwd": 3}
+    assert not any(n_p.values())
+    torch.testing.assert_close(l_k, l_p, atol=1e-5, rtol=1e-4)
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_k, p_p)])
+    assert diff.max().item() <= 2 * 3 * tcfg.optimizer.lr
+    assert (diff > 1e-5).float().mean().item() < 1e-3

@@ -68,7 +68,7 @@ def test_tree_forward_matches_jax(order, ln):
     rng = np.random.default_rng(order)
     leaves = [rng.standard_normal((5, 3, q)).astype(np.float32) for q in TREE_Q[order]]
     want, _ = JC.tree_forward([jnp.asarray(v) for v in leaves], ln)
-    got = TC.tree_forward([torch.from_numpy(v) for v in leaves], ln)
+    got, _ = TC.tree_forward([torch.from_numpy(v) for v in leaves], ln)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
     tree = TK.kron_vectors_tree([torch.from_numpy(v) for v in leaves], use_layernorm=ln)
     jtree = JK.kron_vectors_tree([jnp.asarray(v) for v in leaves], use_layernorm=ln)
