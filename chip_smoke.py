@@ -36,16 +36,20 @@ non-zero, printing no result, when anything is missing or any phase fails:
    versions and against the dense-cache step;
 5. slice 3's kernels (training) at full width, each against its plain
    version and timed as in phase 2: the kron_gather stats leg and backward
-   at 2,048 ids (repeated ids, 0 and vocab-1 among them), and the fused
-   Kronecker-head CE forward and backward at 2,048 tokens (labels 0 and
-   vocab-1 among them); the yardsticks are ``F.embedding`` forward and
-   backward on the materialized 1.24 GB table, and ``torch.matmul`` on the
-   materialized head plus ``F.cross_entropy`` (forward, and forward with
-   backward);
-6. slice 3's path at full width, after the serving state is freed (the
-   serving phases keep their full depth; the whole script runs in about
-   two minutes on an H100): the full qwen3-1.7b trains for a few AdamW
-   steps (no warmup) through
+   at 2,048 ids (repeated ids, 0 and vocab-1 among them; the backward run
+   twice for the same bits), and the fused Kronecker-head CE forward and
+   backward at 2,048 tokens (labels 0 and vocab-1 among them); the
+   yardsticks are ``F.embedding`` forward and backward on the materialized
+   1.24 GB table, and ``torch.matmul`` on the materialized head plus
+   ``F.cross_entropy`` (forward, and forward with backward);
+6. slice 4's kernels (ket linears) at the four qwen3-1.7b ket-linear
+   shapes at rank 8 (q/o, k/v, wi/wg, FFN wo): the kron_matmul forward at
+   2,048 tokens and at 8 (serving) and its backward at 2,048 tokens, each
+   against its plain version (the backward run twice for the same bits),
+   timed beside its bound, the plain version and ``torch.matmul`` on the
+   materialized weight (forward, and forward with backward);
+7. slice 3's path at full width, after the serving state is freed: the
+   full qwen3-1.7b trains for a few AdamW steps (no warmup) through
    ``make_train_step`` on ``synthetic.batch_at`` Markov batches of 8 x 256
    tokens, bf16 activations; every loss and grad norm finite, the last loss
    below the first, each training kernel launched exactly once per step,
@@ -53,7 +57,21 @@ non-zero, printing no result, when anything is missing or any phase fails:
    fp32 training step through the kernels against ``use_kernels=False``
    (loss, embedding and head factor gradients, one layer's weights after
    the AdamW update);
-7. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+8. slice 4's path at full width: the same with ``linear_kind="ket"`` at
+   rank 8 (every attention and FFN projection a Kronecker factor pair), the
+   kron_matmul legs counted exactly (per step: 7 projections x 28 layers
+   forward, as many again in the per-layer recompute, and as many
+   backwards), then one fp32 step against ``use_kernels=False,
+   linear_use_kernel=False`` (loss, the embedding, head and layer-0 factor
+   gradients, layer 0 after AdamW);
+9. slice 4's serving at full width: 8 prompts of 128 tokens prefilled in
+   chunks of 16 and 8 greedy decode steps with ket projections, launch
+   counts checked, a profile of one decode step, and one fp32 decode step
+   against the plain versions;
+10. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+
+No depth is cut: every path runs the published 28 layers (the whole
+script takes a few minutes on an H100).
 """
 
 from __future__ import annotations
@@ -83,12 +101,22 @@ GATHER_TOL = dict(atol=1e-4, rtol=1e-5)  # sums of 32 unit-variance LN rows;
 MATMUL_TOL = dict(atol=1e-4, rtol=1e-5)  # depth-(r*q2) fp32 sums, other order
 MODEL_F32_ATOL = 1e-3  # 28 random fp32 layers may grow a ~1e-6 embedding difference
 # training kernels: the stats leg takes the LN moments by the separable
-# formula; the gather backward sums by fp32 atomicAdd in no fixed order; the
-# CE kernels sum 1,024-deep products and 152,100 exponentials in another
-# order, and the backward's dh and dF are sums of softmax - onehot terms that
-# cancel, so their tolerance is scaled by the largest entry
+# formula; the gather backward sums each factor column in token order, the
+# plain version by index_add_; the CE kernels sum 1,024-deep products and
+# 152,100 exponentials in another order, and the backward's dh and dF are
+# sums of softmax - onehot terms that cancel; the kron_matmul backward sums
+# dF over up to 196,608 rows in chunk partials, so these tolerances are
+# scaled by the largest entry
 STATS_TOL = dict(atol=1e-5, rtol=1e-4)
 GATHER_BWD_SCALE, CE_BWD_SCALE = 1e-5, 1e-4  # atol = scale * max|plain|, rtol 1e-4
+MATMUL_BWD_SCALE = 1e-5
+# the ket linears of qwen3-1.7b at rank 8: (name, d_in, d_out, projections
+# per layer); their factors are q (64, 32) -> t (64, 32), (32, 32), (96, 64)
+# and q (96, 64) -> t (64, 32)
+KET_RANK = 8
+KET_SHAPES = (("q/o", 2048, 2048, 2), ("k/v", 2048, 1024, 2), ("wi/wg", 2048, 6144, 2),
+              ("ffn wo", 6144, 2048, 1))
+KET_DECODE_STEPS = 8
 CE_LOSS_TOL = dict(atol=1e-4, rtol=1e-5)
 TRAIN_TOKENS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 256, 5, 1e-3
 # the fp32 training step: the loss and the factor gradients are sums over
@@ -261,10 +289,9 @@ def reset_counts() -> None:
     from repro_torch.kernels.kron_logits import ops as CE
     from repro_torch.kernels.kron_matmul import ops as M
 
-    for counts in (FA.launches, G.launches, CE.launches):
+    for counts in (FA.launches, G.launches, CE.launches, M.launches):
         for k in counts:
             counts[k] = 0
-    M.launches = 0
 
 
 def profile_call(torch, what: str, fn, wall_ms: float, groups=None) -> None:
@@ -358,7 +385,7 @@ def drive_main_path(torch, dev, params):
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
         launches = {"kron_gather_fwd": G.launches["kron_gather_fwd"],
-                    "kron_matmul_fwd": M.launches}
+                    "kron_matmul_fwd": M.launches["kron_matmul_fwd"]}
 
     n_chunks = PROMPT_LEN // C
     expected = n_chunks + NEW_TOKENS  # one launch per prefill chunk and per step
@@ -543,7 +570,7 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
             decode_ms.append(dt)
         eng.check()
     launches = {"kron_gather_fwd": G.launches["kron_gather_fwd"],
-                "kron_matmul_fwd": M.launches,
+                "kron_matmul_fwd": M.launches["kron_matmul_fwd"],
                 "paged_split": FA.launches["paged_split"],
                 "paged_combine": FA.launches["paged_combine"]}
     st = eng.stats()
@@ -707,6 +734,10 @@ def check_training_kernels(torch, dev):
     want_dfs = G.kron_gather_bwd_ref(ef, ids, g, want_stats)
     err_bwd = max(scaled(a, b, GATHER_BWD_SCALE, f"gather backward dF{j + 1}")
                   for j, (a, b) in enumerate(zip(dfs, want_dfs)))
+    if not all(torch.equal(a, b) for a, b in zip(G.kron_gather_bwd_cuda(ef, ids, g, stats),
+                                                 dfs)):
+        fail("the gather backward gave other bits on a second run")
+    log("  gather backward: the same bits on a second run")
     d1, d2 = mixed_radix_digits(ids.long(), (t1, t2))
     cols = 4 * (d1.unique().numel() * r * q1 + d2.unique().numel() * r * q2)
     table = torch.cat([G.kron_gather(ef, part, P, True) for part in torch.split(
@@ -832,19 +863,18 @@ def check_training_kernels(torch, dev):
     return results
 
 
-def drive_training(torch, dev):
-    """Phase 6: slice 3's path, the full config training through
-    make_train_step, launch counts checked; returns the launches and the
-    training state (for the fp32 check)."""
-    from repro_torch.configs import get_config
+def drive_training(torch, dev, cfg, tag: str):
+    """Phases 7 and 8: ``cfg`` training through make_train_step, launch
+    counts checked per leg; returns the launches and the training state (for
+    the fp32 check)."""
     from repro_torch.data.synthetic import DataConfig, batch_at
     from repro_torch.kernels.kron_gather import ops as G
     from repro_torch.kernels.kron_logits import ops as CE
+    from repro_torch.kernels.kron_matmul import ops as M
     from repro_torch.models import model as MD
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import TrainConfig, make_train_step, with_params
 
-    cfg = get_config(ARCH)
     batch = TRAIN_TOKENS // TRAIN_SEQ
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch,
                       seed=0)
@@ -854,9 +884,11 @@ def drive_training(torch, dev):
     step_fn = make_train_step(cfg, tcfg)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in batch_at(dcfg, i).items()}
                for i in range(TRAIN_STEPS + 1)]
-    log(f"[train] {cfg.name}: {TRAIN_STEPS} AdamW steps at lr {TRAIN_LR:g} (constant, no "
-        f"warmup), batch {batch} x seq {TRAIN_SEQ} synthetic Markov tokens, activations "
-        f"{cfg.dtype}, remat {cfg.remat!r}")
+    ket_rank = f" at rank {cfg.linear_rank}" if cfg.linear_kind == "ket" else ""
+    log(f"[{tag}] {cfg.name}, {cfg.linear_kind} linears{ket_rank}: "
+        f"{MD.param_count(state['params']):,} params; {TRAIN_STEPS} AdamW steps at lr "
+        f"{TRAIN_LR:g} (constant, no warmup), batch {batch} x seq {TRAIN_SEQ} synthetic "
+        f"Markov tokens, activations {cfg.dtype}, remat {cfg.remat!r}")
     torch.cuda.synchronize()
     reset_counts()
     losses, gnorms, walls = [], [], []
@@ -867,45 +899,51 @@ def drive_training(torch, dev):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         gnorms.append(float(metrics["grad_norm"]))
-        log(f"[train] step {i}: loss {losses[-1]:.4f}, grad norm {gnorms[-1]:.4f}, "
+        log(f"[{tag}] step {i}: loss {losses[-1]:.4f}, grad norm {gnorms[-1]:.4f}, "
             f"{walls[-1]:.1f} ms")
-    launches = {**G.launches, **CE.launches}
+    launches = {**G.launches, **CE.launches, **M.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {"kron_gather_fwd": 0, "kron_gather_fwd_stats": TRAIN_STEPS,
-                "kron_gather_bwd": TRAIN_STEPS, "kron_ce_fwd": TRAIN_STEPS,
-                "kron_ce_bwd": TRAIN_STEPS}
-    log(f"[train] launches {launches} (expected {expected}: one per leg per microbatch "
-        f"per step)")
+    # a ket layer runs 7 projections forward, again in its recompute, and
+    # one backward each
+    ket = 7 * cfg.num_layers if cfg.linear_kind == "ket" else 0
+    S = TRAIN_STEPS
+    expected = {"kron_gather_fwd": 0, "kron_gather_fwd_stats": S, "kron_gather_bwd": S,
+                "kron_ce_fwd": S, "kron_ce_bwd": S, "kron_matmul_fwd": 2 * ket * S,
+                "kron_matmul_bwd": ket * S}
+    log(f"[{tag}] launches {launches} (expected {expected}: one per training leg per "
+        f"step; per ket projection per step two forwards and one backward)")
     if launches != expected:
-        fail(f"training launches {launches}, expected {expected}")
+        fail(f"{tag}: launches {launches}, expected {expected}")
     if not all(math.isfinite(v) for v in losses + gnorms):
-        fail(f"non-finite training metrics: losses {losses}, grad norms {gnorms}")
+        fail(f"{tag}: non-finite training metrics: losses {losses}, grad norms {gnorms}")
     if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall: {losses}")
+        fail(f"{tag}: the loss did not fall: {losses}")
     steady = statistics.median(walls[1:])
-    log(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f}; step wall median "
+    log(f"[{tag}] loss {losses[0]:.4f} -> {losses[-1]:.4f}; step wall median "
         f"{steady:.1f} ms over steps 1-{TRAIN_STEPS - 1} ({TRAIN_TOKENS / steady * 1e3:.0f} "
         f"tokens/s); peak device memory {peak:.2f} GiB")
-    profile_call(torch, "one training step", lambda: step_fn(state, batches[TRAIN_STEPS]),
-                 steady, groups={"CE kernels": ["ce_fwd_kernel", "ce_bwd_kernel",
+    profile_call(torch, f"one {tag} step", lambda: step_fn(state, batches[TRAIN_STEPS]),
+                 steady, groups={"kron_matmul kernels": ["kron_stage", "kron_gemm",
+                                                         "kron_sum_parts"],
+                                 "CE kernels": ["ce_fwd_kernel", "ce_bwd_kernel",
                                                 "ce_combine", "sum_parts"],
                                  "kron_gather kernels": ["kron_gather2"],
                                  "GEMMs": ["gemm", "nvjet", "xmma", "cutlass"],
                                  "elementwise and copies": ["elementwise", "copy", "reduce"]})
-    del launches["kron_gather_fwd"]  # the serving leg, checked above to stay unused
     return launches, state
 
 
-def check_train_step_fp32(torch, dev, state):
-    """One full-width fp32 training step through the kernels against
-    use_kernels=False, on the same parameters and batch."""
-    from repro_torch.configs import get_config
+def check_train_step_fp32(torch, dev, state, cfg, plain, tag: str):
+    """One full-width fp32 training step through the kernels (``cfg``)
+    against the plain versions (``plain``), on the same parameters and
+    batch: the loss, the embedding, head and layer-0 gradients, and layer
+    0 after one AdamW update."""
     from repro_torch.data.synthetic import DataConfig, batch_at
     from repro_torch.models import model as MD
     from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, global_norm,
                                          tree_leaves)
 
-    cfg32 = dataclasses.replace(get_config(ARCH), dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(DataConfig(
         vocab_size=cfg32.vocab_size, seq_len=TRAIN_SEQ,
         global_batch=TRAIN_TOKENS // TRAIN_SEQ, seed=1), 0).items()}
@@ -915,7 +953,8 @@ def check_train_step_fp32(torch, dev, state):
     n_layer = len(list(tree_leaves(layer)))
     first = len(list(tree_leaves(params["embed"])))  # layer 0's leaves follow the embedding
     out = {}
-    for name, c in (("kernels", cfg32), ("plain", dataclasses.replace(cfg32, use_kernels=False))):
+    for name, c in (("kernels", cfg32), ("plain", dataclasses.replace(plain,
+                                                                      dtype=torch.float32))):
         loss, _ = MD.loss_fn(params, c, batch)
         grads = torch.autograd.grad(loss, leaves)
         gnorm = global_norm(grads)
@@ -924,26 +963,217 @@ def check_train_step_fp32(torch, dev, state):
         with torch.no_grad():
             w = [t.detach().clone() for t in tree_leaves(layer)]
         opt = adamw_init(w)
-        adamw_update(AdamWConfig(lr=TRAIN_LR), list(grads[first:first + n_layer]), opt, w,
-                     gnorm=gnorm)
-        out[name] = (loss.detach(), {"embed": grads[:2], "head": grads[-2:]}, w)
+        g0 = list(grads[first:first + n_layer])
+        adamw_update(AdamWConfig(lr=TRAIN_LR), g0, opt, w, gnorm=gnorm)
+        out[name] = (loss.detach(), {"embed": grads[:2], "head": grads[-2:], "layer 0": g0},
+                     w)
         del grads
     (lk, gk, wk), (lp, gp, wp) = out["kernels"], out["plain"]
     dl = abs(lk.item() - lp.item())
-    log(f"[train] fp32 step, kernel route vs use_kernels=False: loss {lk.item():.6f} vs "
+    log(f"[{tag}] fp32 step, kernel route vs plain: loss {lk.item():.6f} vs "
         f"{lp.item():.6f}, |dloss| {dl:.3e} (atol {TRAIN_F32_LOSS_ATOL:g})")
     if not dl <= TRAIN_F32_LOSS_ATOL:
-        fail("the fp32 training step's loss disagrees between the routes")
+        fail(f"{tag}: the fp32 training step's loss disagrees between the routes")
     for part in ("embed", "head"):
         for j, (a, b) in enumerate(zip(gk[part], gp[part])):
             max_err(torch, a, b, dict(atol=TRAIN_F32_GRAD_SCALE * b.abs().max().item(),
                                       rtol=1e-3), f"fp32 step d{part} factor {j + 1}")
+    err0 = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+               for a, b in zip(gk["layer 0"], gp["layer 0"]))
+    log(f"  fp32 step layer 0 gradients: max |kernel - plain| / max |plain| = {err0:.3e} "
+        f"over {n_layer} tensors (bound {TRAIN_F32_GRAD_SCALE:g})")
+    if not err0 <= TRAIN_F32_GRAD_SCALE:
+        fail(f"{tag}: the fp32 step's layer-0 gradients disagree between the routes")
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(wk, wp)])
     off = (diff > 1e-5).float().mean().item()
-    log(f"[train] fp32 step, layer 0 weights after AdamW: max |dw| {diff.max().item():.3e} "
+    log(f"[{tag}] fp32 step, layer 0 weights after AdamW: max |dw| {diff.max().item():.3e} "
         f"(bound 2 lr = {2 * TRAIN_LR:g}), share above 1e-5: {off:.2e} (bound 1e-3)")
     if diff.max().item() > 2 * TRAIN_LR or off >= 1e-3:
-        fail("the fp32 training step's layer weights disagree between the routes")
+        fail(f"{tag}: the fp32 training step's layer weights disagree between the routes")
+
+
+def ket_config():
+    from repro_torch.configs import get_config
+    return get_config(ARCH, linear_kind="ket", linear_rank=KET_RANK)
+
+
+def check_ket_kernels(torch, dev):
+    """Phase 6: the kron_matmul forward and backward at the four ket-linear
+    shapes against their plain versions, timed beside their bounds, the
+    plain versions and torch.matmul on the materialized weight. Returns the
+    JSON row of the backward, summed over one layer's seven projections."""
+    from repro_torch.models.common import linear_init
+    from repro_torch.kernels.kron_matmul import ops as M
+
+    N = TRAIN_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(8)
+    scratch = torch.empty(16 * 2 ** 20, dtype=torch.int32, device=dev)  # 64 MB > L2
+    flush = scratch.zero_
+    sums = {leg: dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+            for leg in ("fwd", "bwd", "fwd8")}
+    bound_by = {leg: {"bytes": 0.0, "operations": 0.0} for leg in sums}
+    bwd_err = 0.0
+    for name, d_in, d_out, mult in KET_SHAPES:
+        f = linear_init(gen, d_in, d_out, device=dev, kind="ket", rank=KET_RANK)["factors"]
+        (r, q1, t1), (_, q2, t2) = f[0].shape, f[1].shape
+        log(f"[kernels] ket {name}: {d_in} -> {d_out}, F1 {tuple(f[0].shape)}, "
+            f"F2 {tuple(f[1].shape)} fp32, {mult} per layer")
+        x = torch.randn((N, d_in), generator=gen, device=dev)
+        g = torch.randn((N, d_out), generator=gen, device=dev)
+        got = M.kron_matmul(f, x, d_out)
+        torch.cuda.synchronize()
+        max_err(torch, got, M.kron_matmul(f, x, d_out, use_kernel=False), MATMUL_TOL,
+                f"forward B={N}")
+        x8 = x[:BATCH].contiguous()
+        got = M.kron_matmul(f, x8, d_out)
+        torch.cuda.synchronize()
+        max_err(torch, got, M.kron_matmul(f, x8, d_out, use_kernel=False), MATMUL_TOL,
+                f"forward B={BATCH}")
+        dx, dfs = M.kron_matmul_bwd_cuda(f, x, g)
+        torch.cuda.synchronize()
+        want_dx, want_dfs = M.kron_matmul_bwd_ref(f, x, g)
+        for part, a, b in zip(("dx", "dF1", "dF2"), (dx, *dfs), (want_dx, *want_dfs)):
+            bwd_err = max(bwd_err, max_err(torch, a, b, dict(
+                atol=MATMUL_BWD_SCALE * b.abs().max().item(), rtol=1e-4), f"backward {part}"))
+        again = M.kron_matmul_bwd_cuda(f, x, g)
+        if not (torch.equal(again[0], dx) and all(torch.equal(a, b)
+                                                  for a, b in zip(again[1], dfs))):
+            fail(f"the kron_matmul backward gave other bits on a second run ({name})")
+        log("  backward: the same bits on a second run")
+        del again, want_dx, want_dfs, dx, dfs
+        w = M.kron_matmul(f, torch.eye(d_in, device=dev), d_out)  # (d_in, d_out)
+        wq, xq = w.clone().requires_grad_(True), x.clone().requires_grad_(True)
+
+        def dense_fwd_bwd():
+            wq.grad = xq.grad = None
+            torch.matmul(xq, wq).backward(g)
+
+        s1, s2 = 2.0 * r * t1 * q1 * q2, 2.0 * r * q2 * t1 * t2  # per token
+        fbytes = 4 * sum(a.numel() for a in f)
+        legs = {
+            # x and the factors in, y out; x, g and the factors in, dx and dF out
+            "fwd": (bound(4 * N * (d_in + d_out) + fbytes, N * (s1 + s2)),
+                    lambda: M.kron_matmul(f, x, d_out),
+                    lambda: M.kron_matmul(f, x, d_out, use_kernel=False),
+                    lambda: torch.matmul(x, w)),
+            "bwd": (bound(4 * N * (2 * d_in + d_out) + 2 * fbytes, N * (3 * s1 + 2 * s2)),
+                    lambda: M.kron_matmul_bwd_cuda(f, x, g),
+                    lambda: M.kron_matmul_bwd_ref(f, x, g), dense_fwd_bwd),
+            "fwd8": (bound(4 * BATCH * (d_in + d_out) + fbytes, BATCH * (s1 + s2)),
+                     lambda: M.kron_matmul(f, x8, d_out),
+                     lambda: M.kron_matmul(f, x8, d_out, use_kernel=False),
+                     lambda: torch.matmul(x8, w)),
+        }
+        for leg, ((b_ms, b_by), kern, plain, lib) in legs.items():
+            iters = 50 if leg == "fwd8" else 20
+            t = {"ms": time_ms(torch, kern, flush, iters=iters),
+                 "plain_ms": time_ms(torch, plain, flush, iters=iters),
+                 "bound_ms": b_ms, "library_ms": time_ms(torch, lib, flush, iters=iters)}
+            log(f"  {leg:4s} kernel {t['ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})  plain "
+                f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms")
+            for k, v in t.items():
+                sums[leg][k] += mult * v
+            bound_by[leg][b_by] += mult * b_ms
+        del w, wq, xq, x, g
+        torch.cuda.empty_cache()
+    del scratch
+    torch.cuda.empty_cache()
+    for leg, t in sums.items():
+        tokens = BATCH if leg == "fwd8" else N
+        log(f"  one layer's 7 ket projections, {leg} at {tokens} tokens: kernel "
+            f"{t['ms']:.4f} ms  bound {t['bound_ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+            f"library {t['library_ms']:.4f} ms")
+    return [{
+        "name": "kron_matmul_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/kron_matmul.cu",
+        "replaces": "src/repro/kernels/kron_matmul/kron_matmul.py:70",
+        "shape": f"one layer's 7 ket projections (rank {KET_RANK}) at {N} tokens",
+        "max_abs_err": bwd_err, **sums["bwd"],
+        # the layer's bound is the sum of its calls' bounds; name the larger share
+        "bound_by": max(bound_by["bwd"], key=bound_by["bwd"].get),
+        "library": "torch.matmul forward + backward on the materialized weights",
+    }]
+
+
+def drive_ket_serving(torch, dev):
+    """Phase 9: ket serving at full width, launch counts checked, one decode
+    step profiled, one fp32 decode step against the plain versions."""
+    from repro_torch.kernels.kron_gather import ops as G
+    from repro_torch.kernels.kron_matmul import ops as M
+    from repro_torch.models import model as MD
+
+    cfg = ket_config()
+    params = MD.init_params(cfg, seed=0, device=dev)
+    C = cfg.prefill_chunk
+    gen = torch.Generator(device=dev).manual_seed(9)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
+                            device=dev, dtype=torch.int32)
+    lens = torch.full((BATCH,), C, device=dev, dtype=torch.int32)
+    log(f"[ket serve] {cfg.name}, ket linears at rank {cfg.linear_rank}: "
+        f"{MD.param_count(params):,} params; {BATCH} prompts of {PROMPT_LEN} tokens, "
+        f"{KET_DECODE_STEPS} decode steps")
+    with torch.inference_mode():
+        warm = MD.init_cache(cfg, BATCH, MAX_LEN, device=dev)  # first-call set-up
+        logits, warm = MD.prefill_chunk_fn(params, cfg, warm, prompts[:, :C], lens)
+        MD.serve_step_fn(params, cfg, warm, logits.argmax(-1).to(torch.int32))
+        del warm
+        cache = MD.init_cache(cfg, BATCH, MAX_LEN, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for c0 in range(0, PROMPT_LEN, C):
+            logits, cache = MD.prefill_chunk_fn(params, cfg, cache, prompts[:, c0:c0 + C],
+                                                lens)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        tok = logits.argmax(-1).to(torch.int32)
+        generated = [tok]
+        t0 = time.perf_counter()
+        for _ in range(KET_DECODE_STEPS):
+            logits, cache = MD.serve_step_fn(params, cfg, cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+            generated.append(tok)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        launches = {"kron_gather_fwd": G.launches["kron_gather_fwd"], **M.launches}
+    n_chunks = PROMPT_LEN // C
+    calls = n_chunks + KET_DECODE_STEPS
+    expected = {"kron_gather_fwd": calls,
+                "kron_matmul_fwd": calls * (7 * cfg.num_layers + 1), "kron_matmul_bwd": 0}
+    log(f"[ket serve] launches {launches} (expected {expected}: per call one lookup, "
+        f"7 ket projections per layer and the head)")
+    if launches != expected:
+        fail(f"ket serving: launches {launches}, expected {expected}")
+    if tuple(logits.shape) != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+        fail(f"ket serving: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    toks = torch.stack(generated)
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail("ket serving: a generated token lies outside the vocabulary")
+    log(f"[ket serve] prefill {BATCH}x{PROMPT_LEN} tokens in {n_chunks} chunks: "
+        f"{t_prefill:.3f} s ({BATCH * PROMPT_LEN / t_prefill:.0f} prompt tok/s); decode "
+        f"{KET_DECODE_STEPS} steps: {t_decode:.3f} s ({BATCH * KET_DECODE_STEPS / t_decode:.0f}"
+        f" gen tok/s, {t_decode / KET_DECODE_STEPS * 1e3:.2f} ms/step); tokens in the "
+        f"vocabulary, logits finite")
+    with torch.inference_mode():
+        profile_call(torch, "one ket decode step", lambda: MD.serve_step_fn(
+            params, cfg, cache, tok), t_decode / KET_DECODE_STEPS * 1e3,
+            groups={"kron_matmul kernels": ["kron_stage"], "kron_gather kernels":
+                    ["kron_gather2"], "GEMMs": ["gemm", "nvjet", "xmma", "cutlass"],
+                    "elementwise and copies": ["elementwise", "copy", "reduce"]})
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        outs = []
+        for c in (cfg32, dataclasses.replace(cfg32, use_kernels=False,
+                                             linear_use_kernel=False)):
+            cache32 = MD.init_cache(c, BATCH, 8, device=dev)
+            outs.append(MD.serve_step_fn(params, c, cache32, tok)[0])
+            del cache32
+    diff = (outs[0] - outs[1]).abs().max().item()
+    log(f"[ket serve] fp32 decode step, kernel route vs plain: max |dlogit| = {diff:.3e} "
+        f"(atol {MODEL_F32_ATOL:g}), |logit| max {outs[1].abs().max().item():.3f}")
+    if not diff <= MODEL_F32_ATOL:
+        fail("ket serving: the kernel route and the plain versions disagree")
+    return launches
 
 
 def main() -> None:
@@ -973,21 +1203,35 @@ def main() -> None:
                 log(f"  {name}: {line.strip()}")
 
     kernels = (check_kernels(torch, dev) + check_paged_kernels(torch, dev)
-               + check_training_kernels(torch, dev))
+               + check_training_kernels(torch, dev) + check_ket_kernels(torch, dev))
     params = init_params(torch, dev)
     launches = drive_main_path(torch, dev, params)  # slice 1's path
     engine_launches = drive_engine(torch, dev, params)  # slice 2's path, run (a)
     check_paged_step_fp32(torch, dev, params)
     del params
     torch.cuda.empty_cache()
-    train_launches, state = drive_training(torch, dev)  # slice 3's path
-    check_train_step_fp32(torch, dev, state)
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    train_launches, state = drive_training(torch, dev, cfg, "train")  # slice 3's path
+    check_train_step_fp32(torch, dev, state, cfg, dataclasses.replace(cfg, use_kernels=False),
+                          "train")
+    del state
+    torch.cuda.empty_cache()
+    kcfg = ket_config()
+    ket_launches, state = drive_training(torch, dev, kcfg, "ket train")  # slice 4's path
+    check_train_step_fp32(torch, dev, state, kcfg, dataclasses.replace(
+        kcfg, use_kernels=False, linear_use_kernel=False), "ket train")
+    del state
+    torch.cuda.empty_cache()
+    drive_ket_serving(torch, dev)
+    # each row's launches come from the path that runs it at that shape
+    path_of = {"kron_gather_fwd": launches, "kron_matmul_fwd": launches,
+               "paged_split": engine_launches, "paged_combine": engine_launches,
+               "kron_gather_fwd_stats": train_launches, "kron_gather_bwd": train_launches,
+               "kron_ce_fwd": train_launches, "kron_ce_bwd": train_launches,
+               "kron_matmul_bwd": ket_launches}
     for e in kernels:
-        if e["name"] in train_launches:
-            e["launches"] = train_launches[e["name"]]
-        else:
-            path = engine_launches if e["name"].startswith("paged") else launches
-            e["launches"] = path[e["name"]]
+        e["launches"] = path_of[e["name"]][e["name"]]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,10 @@ read).
 
 Field names and defaults are those of ``repro.configs.base.ModelConfig``;
 ``dtype`` and ``param_dtype`` are torch dtypes. Fields of slices not yet
-ported (MoE, MLA, SSM, ket linears, quantization, meshes) are left out
-until their slice lands.
+ported (MoE, MLA, SSM, quantization, meshes) are left out until their
+slice lands, and so are the TPU tile sizes of the ket linears
+(``linear_tile``, ``linear_block_b``) and their mesh knob
+(``ket_shard_rank``).
 """
 
 from __future__ import annotations
@@ -56,6 +58,17 @@ class ModelConfig:
     # version everywhere, because the caller asked for it
     use_kernels: Optional[bool] = None
 
+    # ket linear layers: "ket" stores the FFN wi/wg/wo and the attention
+    # q/k/v/o projections as rank-r Kronecker factor stacks (core/ketops)
+    # applied by the factor chain, forward and backward
+    linear_kind: str = "dense"  # dense | ket
+    linear_order: int = 2
+    linear_rank: int = 8
+    # the kron_matmul kernels for the ket linears, independent of
+    # ``use_kernels``: None = the kernels for CUDA tensors, the plain
+    # versions for CPU tensors; False = the plain versions everywhere
+    linear_use_kernel: Optional[bool] = None
+
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
 
@@ -86,6 +99,8 @@ class ModelConfig:
                 f"layer kinds {self.layer_pattern} are not ported yet (only 'attn')")
         if self.mlp_type != "swiglu":
             raise NotImplementedError(f"mlp_type {self.mlp_type!r} is not ported yet")
+        if self.linear_kind not in ("dense", "ket"):
+            raise ValueError(f"unknown linear kind {self.linear_kind!r}")
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat policy {self.remat!r}")
 

@@ -1,5 +1,5 @@
 """ketops: the Kronecker-operator subsystem (torch port of
-``repro.core.ketops``, the parts the serving path uses).
+``repro.core.ketops``, the parts the serving and training paths use).
 
 The operator is ``F = Σ_{k=1..r} ⊗_{j=1..n} F_jk`` with ``F_jk ∈ R^{q_j × t_j}``,
 stored as ``order`` factor stacks of shape ``(rank, q_j, t_j)``
@@ -9,7 +9,9 @@ stored as ``order`` factor stacks of shape ``(rank, q_j, t_j)``
   * :func:`apply_vector`  — lazy column extraction ``ids -> F[:, ids]`` (an
                             embedding lookup) through ``kron_gather``,
                             differentiable in the factors;
-  * :func:`apply_matrix`  — ``x @ F`` through ``kron_matmul`` (the kron head);
+  * :func:`apply_matrix`  — ``x @ F`` through ``kron_matmul`` (the kron head
+                            and, via :func:`apply_matrix_factors`, the ket
+                            linears), differentiable in ``x`` and the factors;
   * :func:`materialize`   — the dense table, for tests only.
 
 The per-column ``"leaves"`` storage (word2ket) and the quantized wire format
@@ -168,11 +170,13 @@ def apply_matrix_factors(factors: list, x: torch.Tensor, out_dim: int, *,
                          use_kernel: Optional[bool] = None) -> torch.Tensor:
     """``x (..., d_in) @ (Σ_k ⊗_j F_jk)`` -> ``(..., out_dim)``, spec-free:
     ``x`` zero-padded up to ``prod q``, output sliced to ``out_dim``, every
-    contraction in fp32, result in ``x``'s dtype."""
+    contraction in fp32, result in ``x``'s dtype. It goes through the
+    ``KronMatmul`` autograd Function: the CUDA kernels forward and backward
+    for CUDA ``x``, the plain versions for CPU ``x`` or ``use_kernel=False``."""
     from repro_torch.kernels.kron_matmul.ops import kron_matmul
     lead = x.shape[:-1]
     z = kron_matmul(factors, x.reshape(-1, x.shape[-1]), out_dim, use_kernel)
-    return z.reshape(*lead, out_dim).to(x.dtype)
+    return z.reshape(*lead, out_dim)
 
 
 def apply_matrix(spec: KronSpec, params: dict, x: torch.Tensor) -> torch.Tensor:

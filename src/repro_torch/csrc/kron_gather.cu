@@ -168,31 +168,35 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
 //   du_k = rstd_k ((Dv_k - mbar sum v_k) - c_k rstd_k (u_k sum v_k^2 - mu_k sum v_k))
 //   dv_k = rstd_k ((Du_k - mbar sum u_k) - c_k rstd_k (v_k sum u_k^2 - mu_k sum u_k))
 // (du = Dv, dv = Du without LN), then dF1[k, m, d1] += du_k[m] and
-// dF2[k, j, d2] += dv_k[j]. No (rank, q1*q2) tensor is built.
+// dF2[k, j, d2] += dv_k[j] over the ids. No (rank, q1*q2) tensor is built.
 //
 // What bounds it on the H100: memory. At N = 2,048 ids of the qwen3-1.7b
 // embedding it reads g (16.8 MB), the stats and the touched factor columns
 // and writes the 4.8 MB of dF: about 22 MB, 6.6 us at 3.35 TB/s; the
-// arithmetic is 0.5 GFLOP.
+// arithmetic is 0.5 GFLOP. The fixed-order sum adds the du / dv rows
+// (25 MB at 2,048 ids) written once and read once.
 //
 // Design:
 //  * One block per id: the row of g, both gathered columns and the two
 //    contractions live in shared memory; u and v rows are padded by one
 //    float, so the rank-major thread mapping (one rank per lane) reads them
-//    without bank conflicts while D is a broadcast.
-//  * The TPU scatters dF as one_hot^T @ dleaf into factor-sized sums resident
-//    in VMEM across its sequential grid. Blocks here run in parallel, so the
-//    scatter is an fp32 atomicAdd into dF (zeroed by the caller; 4.8 MB,
-//    resident in L2). The order of the additions changes from run to run,
-//    so the last bits of dF do too (an id repeated in the batch adds to the
-//    same columns from several blocks).
+//    without bank conflicts while D is a broadcast. It writes its du and dv
+//    rows to (N, rank*q1) and (N, rank*q2) scratch.
+//  * The TPU sums dF as one_hot^T @ dleaf into factor-sized sums resident in
+//    VMEM across its sequential grid, so its bits repeat from run to run.
+//    Here a second kernel runs one block per factor column (t1 + t2 blocks):
+//    it walks the ids in token order, 256 at a time, compacts the positions
+//    whose digit is its column (warp ballots, in order) and adds their
+//    scratch rows in that order, so every dF element is one fixed-order sum
+//    and two calls give the same bits (no atomics). A column no id touches
+//    is written as zeros.
 //  * An id outside [0, t1*t2) contributes nothing.
 __global__ void __launch_bounds__(kThreads)
 kron_gather2_bwd_kernel(const int32_t* __restrict__ ids, const float* __restrict__ g,
                         int g_cols, const float* __restrict__ stats,
                         const float* __restrict__ f1, const float* __restrict__ f2,
                         int rank, int q1, int t1, int q2, int t2, int use_ln,
-                        float* __restrict__ df1, float* __restrict__ df2) {
+                        float* __restrict__ du_rows, float* __restrict__ dv_rows) {
   extern __shared__ float smem[];
   const int us = q1 + 1, vs = q2 + 1, P = q1 * q2;
   float* u = smem;                  // [rank][q1 + 1]
@@ -292,7 +296,7 @@ kron_gather2_bwd_kernel(const int32_t* __restrict__ ids, const float* __restrict
       const float c = rstd * (sc[4 * rank + k] - mu * P * mbar) / P;
       du = rstd * ((du - mbar * sv1) - c * rstd * (u[k * us + m] * sv2 - mu * sv1));
     }
-    atomicAdd(df1 + static_cast<size_t>(e) * t1 + d1, du);
+    du_rows[static_cast<size_t>(n) * rank * q1 + e] = du;
   }
   for (int e = threadIdx.x; e < rank * q2; e += blockDim.x) {
     const int k = e / q2, j = e - k * q2;
@@ -303,7 +307,73 @@ kron_gather2_bwd_kernel(const int32_t* __restrict__ ids, const float* __restrict
       const float c = rstd * (sc[4 * rank + k] - mu * P * mbar) / P;
       dv = rstd * ((dv - mbar * su1) - c * rstd * (v[k * vs + j] * su2 - mu * su1));
     }
-    atomicAdd(df2 + static_cast<size_t>(e) * t2 + d2, dv);
+    dv_rows[static_cast<size_t>(n) * rank * q2 + e] = dv;
+  }
+}
+
+// dF of one factor column per block: blocks [0, t1) sum the du rows of the
+// ids whose first digit is the block's column, blocks [t1, t1 + t2) the dv
+// rows by the second digit, in token order.
+constexpr int kColPer = 8;  // accumulators per thread: rank*q up to 2,048 a pass
+
+__global__ void __launch_bounds__(kThreads)
+kron_gather2_bwd_cols_kernel(const int32_t* __restrict__ ids, int n_ids,
+                             const float* __restrict__ du_rows,
+                             const float* __restrict__ dv_rows, int rank, int q1, int t1,
+                             int q2, int t2, float* __restrict__ df1,
+                             float* __restrict__ df2) {
+  __shared__ int hits[kThreads];                 // matching positions, in order
+  __shared__ int warp_base[kThreads / 32 + 1];  // exclusive prefix, then total
+  const bool first = blockIdx.x < t1;
+  const int col = first ? blockIdx.x : blockIdx.x - t1;
+  const int R = rank * (first ? q1 : q2);
+  const int ncols = first ? t1 : t2;
+  const float* rows = first ? du_rows : dv_rows;
+  float* df = first ? df1 : df2;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int e0 = 0; e0 < R; e0 += kThreads * kColPer) {
+    float acc[kColPer];
+#pragma unroll
+    for (int u = 0; u < kColPer; ++u) acc[u] = 0.f;
+    for (int n0 = 0; n0 < n_ids; n0 += kThreads) {
+      const int n = n0 + threadIdx.x;
+      bool hit = false;
+      if (n < n_ids) {
+        const int id = ids[n];
+        hit = id >= 0 && id < t1 * t2 && (first ? id / t2 : id % t2) == col;
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) warp_base[warp] = __popc(mask);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int total = 0;
+        for (int w = 0; w < kThreads / 32; ++w) {
+          const int c = warp_base[w];
+          warp_base[w] = total;
+          total += c;
+        }
+        warp_base[kThreads / 32] = total;
+      }
+      __syncthreads();
+      if (hit) hits[warp_base[warp] + __popc(mask & ((1u << lane) - 1u))] = n;
+      __syncthreads();
+      const int nh = warp_base[kThreads / 32];
+      for (int h = 0; h < nh; ++h) {
+        const float* row = rows + static_cast<size_t>(hits[h]) * R;
+#pragma unroll
+        for (int u = 0; u < kColPer; ++u) {
+          const int e = e0 + u * kThreads + threadIdx.x;
+          if (e < R) acc[u] += row[e];
+        }
+      }
+      __syncthreads();  // hits and warp_base are rewritten by the next chunk
+    }
+#pragma unroll
+    for (int u = 0; u < kColPer; ++u) {
+      const int e = e0 + u * kThreads + threadIdx.x;
+      if (e < R) df[static_cast<size_t>(e) * ncols + col] = acc[u];
+    }
   }
 }
 
@@ -342,13 +412,15 @@ extern "C" long long w2k_kron_gather2_bwd_smem_bytes(int rank, int q1, int q2) {
 }
 
 // g: (n_ids, g_cols) fp32; stats: (n_ids, 2, rank) fp32 under LN, else
-// ignored; df1, df2: zeroed (rank, q_j, t_j) fp32, accumulated into
+// ignored; du_rows (n_ids, rank*q1) and dv_rows (n_ids, rank*q2) fp32
+// scratch; df1, df2: (rank, q_j, t_j) fp32 outputs, every element written
 extern "C" int w2k_kron_gather2_bwd(const int32_t* ids, int n_ids, const float* g,
                                     int g_cols, const float* stats, const float* f1,
                                     const float* f2, int rank, int q1, int t1, int q2,
-                                    int t2, int use_ln, float* df1, float* df2,
-                                    void* stream) {
+                                    int t2, int use_ln, float* du_rows, float* dv_rows,
+                                    float* df1, float* df2, void* stream) {
   if (n_ids <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(w2k_kron_gather2_bwd_smem_bytes(rank, q1, q2));
   static size_t smem_cap = 48 * 1024;
   if (smem > smem_cap) {
@@ -358,8 +430,12 @@ extern "C" int w2k_kron_gather2_bwd(const int32_t* ids, int n_ids, const float* 
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_cap = smem;
   }
-  kron_gather2_bwd_kernel<<<n_ids, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ids, g, g_cols, stats, f1, f2, rank, q1, t1, q2, t2, use_ln, df1, df2);
+  kron_gather2_bwd_kernel<<<n_ids, kThreads, smem, st>>>(
+      ids, g, g_cols, stats, f1, f2, rank, q1, t1, q2, t2, use_ln, du_rows, dv_rows);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kron_gather2_bwd_cols_kernel<<<t1 + t2, kThreads, 0, st>>>(
+      ids, n_ids, du_rows, dv_rows, rank, q1, t1, q2, t2, df1, df2);
   return static_cast<int>(cudaGetLastError());
 }
 

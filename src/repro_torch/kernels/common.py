@@ -8,8 +8,9 @@ These are the plain versions the CUDA kernels are held against:
     backward-sweep pair, so the backward re-walks the forward's pairing
     with its saved LN statistics;
   * the Kronecker factor chain ``x · (Σ_k ⊗_j F_jk)``: the rank-folded
-    forward of ``kron_matmul``, and the plain chain with its analytic VJP
-    (the ``kron_logits`` CE forward and backward).
+    forward of ``kron_matmul`` with its analytic VJP (the ket linears'
+    backward), and the plain chain with its analytic VJP (the
+    ``kron_logits`` CE forward and backward).
 
 The TPU's one-hot gather has no counterpart here: on the card a gather is
 an indexed load.
@@ -173,20 +174,22 @@ def tree_backward(n_leaves: int, d_root2d: torch.Tensor, use_layernorm: bool,
 
 
 def chain_fused_forward(x: torch.Tensor, factors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``x (B, prod q) @ (Σ_k ⊗_j F_jk)`` -> ``(B, prod t)`` fp32, with the
-    rank sum folded into the last contraction.
+    """``x (B, prod q) @ (Σ_k ⊗_j F_jk)`` -> ``(B, prod t)``, with the rank
+    sum folded into the last contraction.
 
     Factors are ``(rank, q_j, t_j)``. Column order is ``(t_1, …, t_n)``
-    row-major, matching mixed-radix ids. Every contraction runs in fp32.
+    row-major, matching mixed-radix ids. Every contraction runs in fp32
+    (fp64 for fp64 ``x``, for gradient checks).
     """
     q_dims = tuple(f.shape[1] for f in factors)
     n = len(factors)
     b = x.shape[0]
-    z = x.float().reshape((b,) + q_dims)
-    f32 = [f.float() for f in factors]
+    dt = acc_dtype(x)
+    z = x.to(dt).reshape((b,) + q_dims)
+    fs = [f.to(dt) for f in factors]
     if n == 1:
-        return torch.einsum("bq,rqt->bt", z, f32[0])
-    for i, f in enumerate(f32[:-1]):
+        return torch.einsum("bq,rqt->bt", z, fs[0])
+    for i, f in enumerate(fs[:-1]):
         # z: (B, q_i, ..., q_n) then (B, r, q_{i+1}, ..., q_n, t_1, ..., t_i)
         if i == 0:
             z = torch.einsum("bq...,rqt->brt...", z, f)
@@ -194,8 +197,54 @@ def chain_fused_forward(x: torch.Tensor, factors: Sequence[torch.Tensor]) -> tor
             z = torch.einsum("brq...,rqt->brt...", z, f)
         z = torch.movedim(z, 2, 2 + (n - 1))
     # layout (B, r, q_n, t_1..t_{n-1}); contract q_n AND the rank axis
-    z = torch.einsum("brq...,rqt->b...t", z, f32[-1])
+    z = torch.einsum("brq...,rqt->b...t", z, fs[-1])
     return z.reshape(b, -1)
+
+
+def chain_fused_vjp(x: torch.Tensor, factors: Sequence[torch.Tensor],
+                    d_out: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Analytic VJP of :func:`chain_fused_forward`: ``(dx (B, prod q),
+    [dF_j])`` from the output cotangent ``d_out (B, prod t)``.
+
+    The cotangent is never broadcast over the rank: the last factor's
+    contractions are the transposed folded GEMMs of the forward
+    (``dz = g·F_nᵀ``, ``dF_n = z_{n-1}ᵀ·g``), and the other factors take the
+    plain reverse sweep. The chain intermediates are recomputed, not saved.
+    Contractions run in ``x``'s dtype promoted to at least fp32.
+    """
+    q_dims = tuple(f.shape[1] for f in factors)
+    t_dims = tuple(f.shape[2] for f in factors)
+    n = len(factors)
+    b = x.shape[0]
+    dt = acc_dtype(x)
+    fs = [f.to(dt) for f in factors]
+    d_out = d_out.to(dt)
+    if n == 1:
+        # y = Σ_r x·F_r: every rank slice sees the same cotangent
+        df = torch.einsum("bq,bt->qt", x.to(dt).reshape(b, -1), d_out)
+        dx = torch.einsum("bt,qt->bq", d_out, fs[0].sum(dim=0))
+        return dx, [df[None].expand(fs[0].shape).contiguous()]
+
+    zs = []
+    z = x.to(dt).reshape((b,) + q_dims)
+    for i, f in enumerate(fs[:-1]):
+        zs.append(z)
+        spec = "bq...,rqt->brt..." if i == 0 else "brq...,rqt->brt..."
+        z = torch.movedim(torch.einsum(spec, z, f), 2, 2 + (n - 1))
+    # z layout: (B, r, q_n, t_1..t_{n-1}), the folded last step's input
+    dfactors: list = [None] * n
+    d = d_out.reshape((b,) + t_dims)  # (B, t_1..t_n), no rank broadcast
+    dfactors[n - 1] = torch.einsum("brq...,b...t->rqt", z, d)
+    d = torch.einsum("b...t,rqt->brq...", d, fs[-1])
+    for i in range(n - 2, -1, -1):
+        d_moved = torch.movedim(d, 2 + (n - 1), 2)  # t_i back to axis 2
+        if i == 0:
+            dfactors[0] = torch.einsum("bq...,brt...->rqt", zs[0], d_moved)
+            d = torch.einsum("brt...,rqt->bq...", d_moved, fs[0])
+        else:
+            dfactors[i] = torch.einsum("brq...,brt...->rqt", zs[i], d_moved)
+            d = torch.einsum("brt...,rqt->brq...", d_moved, fs[i])
+    return d.reshape(b, -1), dfactors
 
 
 def chain_forward(x: torch.Tensor, factors: Sequence[torch.Tensor]) -> torch.Tensor:

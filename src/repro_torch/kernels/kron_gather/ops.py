@@ -43,7 +43,7 @@ def _load() -> ctypes.CDLL:
         lib.w2k_kron_gather2_smem_bytes.argtypes = [i, i, i]
         lib.w2k_kron_gather2_smem_bytes.restype = ctypes.c_longlong
         lib.w2k_kron_gather2_bwd.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i,
-                                             p, p, p]
+                                             p, p, p, p, p]
         lib.w2k_kron_gather2_bwd.restype = i
         lib.w2k_kron_gather2_bwd_smem_bytes.argtypes = [i, i, i]
         lib.w2k_kron_gather2_bwd_smem_bytes.restype = ctypes.c_longlong
@@ -127,9 +127,10 @@ def kron_gather_bwd_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
                          g: torch.Tensor, stats: Optional[torch.Tensor],
                          use_layernorm: bool = True) -> list[torch.Tensor]:
     """Launch the CUDA backward: ``dL/dF_j`` fp32 from the output cotangent
-    ``g (N, embed_dim)`` and, with LN, the stats of the forward. The factor
-    scatter is fp32 ``atomicAdd``, so the sums' order (and their last bits)
-    changes from run to run."""
+    ``g (N, embed_dim)`` and, with LN, the stats of the forward. Each id's
+    factor-column cotangents go to ``(N, rank·q_j)`` scratch allocated here,
+    and a second kernel sums them per factor column in token order, so two
+    calls give the same bits; the call with its sum counts as one launch."""
     if ids.device.type != "cuda":
         raise ValueError(f"kron_gather_bwd_cuda needs CUDA tensors, got {ids.device}")
     check_inputs(factors, ids, g.shape[-1])
@@ -150,18 +151,20 @@ def kron_gather_bwd_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
                          f"block (> {_SMEM_LIMIT}) at rank {rank}, q ({q1}, {q2})")
     g = g.contiguous()
     stats = stats.contiguous() if use_layernorm else None
-    df1 = torch.zeros_like(f1)
-    df2 = torch.zeros_like(f2)
-    if n > 0:
-        with torch.cuda.device(ids.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.w2k_kron_gather2_bwd(
-                ids.data_ptr(), n, g.data_ptr(), g.shape[1],
-                stats.data_ptr() if use_layernorm else None, f1.data_ptr(), f2.data_ptr(),
-                rank, q1, t1, q2, t2, int(use_layernorm), df1.data_ptr(), df2.data_ptr(),
-                stream)
-        _raise_on(lib, rc, "kron_gather backward")
-        launches["kron_gather_bwd"] += 1
+    if n == 0:
+        return [torch.zeros_like(f1), torch.zeros_like(f2)]
+    df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
+    du_rows = torch.empty((n, rank * q1), dtype=torch.float32, device=ids.device)
+    dv_rows = torch.empty((n, rank * q2), dtype=torch.float32, device=ids.device)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.w2k_kron_gather2_bwd(
+            ids.data_ptr(), n, g.data_ptr(), g.shape[1],
+            stats.data_ptr() if use_layernorm else None, f1.data_ptr(), f2.data_ptr(),
+            rank, q1, t1, q2, t2, int(use_layernorm), du_rows.data_ptr(),
+            dv_rows.data_ptr(), df1.data_ptr(), df2.data_ptr(), stream)
+    _raise_on(lib, rc, "kron_gather backward")
+    launches["kron_gather_bwd"] += 1
     return [df1, df2]
 
 

@@ -2,10 +2,12 @@
 device, no mesh, no checkpoints).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
-        --steps 100 --batch 8 --seq 256 [--smoke] [--device cpu]
+        --steps 100 --batch 8 --seq 256 [--smoke] [--device cpu] \
+        [--linear ket --linear-rank 8]
 
-Trains the config with its word2ketXS embedding and Kronecker head on the
-seeded synthetic Markov corpus with AdamW under the cosine schedule, and
+Trains the config with its word2ketXS embedding and Kronecker head (and,
+with ``--linear ket``, its attention and FFN projections stored as rank-r
+Kronecker factor stacks) on the seeded synthetic Markov corpus with AdamW under the cosine schedule, and
 prints one ``[train] …`` line. Exit codes: 0 complete, 1 failed (reason
 printed), 2 stopped by a preemption signal.
 """
@@ -33,11 +35,19 @@ def main(argv=None) -> int:
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--linear", default=None, choices=[None, "dense", "ket"],
+                   help="store FFN/attention projections as ket Kronecker factors")
+    p.add_argument("--linear-rank", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
+    overrides = {}
+    if args.linear:
+        overrides["linear_kind"] = args.linear
+    if args.linear_rank is not None:
+        overrides["linear_rank"] = args.linear_rank
     device = resolve_device(args.device)
-    cfg = (get_smoke if args.smoke else get_config)(args.arch)
+    cfg = (get_smoke if args.smoke else get_config)(args.arch, **overrides)
     tcfg = TrainConfig(
         optimizer=AdamWConfig(lr=args.lr,
                               schedule=cosine_schedule(args.lr, args.warmup, args.steps)),

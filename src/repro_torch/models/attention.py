@@ -1,7 +1,7 @@
 """Attention: GQA with RoPE and qk-norm; chunked (flash-style) softmax for
 prefill and a single-token read for decode (torch port of the full-attention
-parts of ``repro.models.attention``; local windows and MLA are not ported
-yet).
+parts of ``repro.models.attention``, dense or ket projections; local
+windows and MLA are not ported yet).
 
 Plain PyTorch, as in the JAX package (where neither is a Pallas kernel).
 Scores and the probability-weighted sums accumulate in fp32; the
@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import apply_rope, dense_init, qkv_proj, rmsnorm
+from repro_torch.models.common import (apply_rope, dense_init, linear_init, linear_opts,
+                                      out_proj, qkv_proj, rmsnorm)
 
 NEG = -1e30
 
@@ -92,12 +93,21 @@ def decode_attention(
 def init_attention(gen: torch.Generator, cfg, device="cuda") -> dict:
     dtype = cfg.param_dtype
     d, H, KVH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    p = {
-        "wq": dense_init(gen, (d, H, Dh), dtype, fan_in=d, device=device),
-        "wk": dense_init(gen, (d, KVH, Dh), dtype, fan_in=d, device=device),
-        "wv": dense_init(gen, (d, KVH, Dh), dtype, fan_in=d, device=device),
-        "wo": dense_init(gen, (H, Dh, d), dtype, fan_in=H * Dh, device=device),
-    }
+    if cfg.linear_kind == "ket":
+        kw = dict(kind="ket", order=cfg.linear_order, rank=cfg.linear_rank)
+        p = {
+            "wq": linear_init(gen, d, H * Dh, dtype, device, **kw),
+            "wk": linear_init(gen, d, KVH * Dh, dtype, device, **kw),
+            "wv": linear_init(gen, d, KVH * Dh, dtype, device, **kw),
+            "wo": linear_init(gen, H * Dh, d, dtype, device, **kw),
+        }
+    else:
+        p = {
+            "wq": dense_init(gen, (d, H, Dh), dtype, fan_in=d, device=device),
+            "wk": dense_init(gen, (d, KVH, Dh), dtype, fan_in=d, device=device),
+            "wv": dense_init(gen, (d, KVH, Dh), dtype, fan_in=d, device=device),
+            "wo": dense_init(gen, (H, Dh, d), dtype, fan_in=H * Dh, device=device),
+        }
     if cfg.qk_norm:
         p["q_norm"] = {"scale": torch.ones((Dh,), dtype=dtype, device=device)}
         p["k_norm"] = {"scale": torch.ones((Dh,), dtype=dtype, device=device)}
@@ -108,10 +118,16 @@ def attention_qkv(params: dict, cfg, x: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor):
     """x (B,S,d) -> q (B,S,H,Dh), k,v (B,S,KVH,Dh), qk-norm and rope applied."""
     dt = cfg.dtype
-    q = qkv_proj(params["wq"], x, dt, cfg.num_heads, cfg.head_dim)
-    k = qkv_proj(params["wk"], x, dt, cfg.num_kv_heads, cfg.head_dim)
-    v = qkv_proj(params["wv"], x, dt, cfg.num_kv_heads, cfg.head_dim)
+    opts = linear_opts(cfg)
+    q = qkv_proj(params["wq"], x, dt, cfg.num_heads, cfg.head_dim, **opts)
+    k = qkv_proj(params["wk"], x, dt, cfg.num_kv_heads, cfg.head_dim, **opts)
+    v = qkv_proj(params["wv"], x, dt, cfg.num_kv_heads, cfg.head_dim, **opts)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def attention_out(params: dict, cfg, o: torch.Tensor) -> torch.Tensor:
+    """o (..., H, Dh) -> (..., d_model) through wo (dense or ket)."""
+    return out_proj(params["wo"], o, cfg.dtype, cfg.d_model, **linear_opts(cfg))

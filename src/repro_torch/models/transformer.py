@@ -19,18 +19,19 @@ from repro_torch.core.embedding import embed_lookup, init_embedding
 from repro_torch.core.logits import head_ce_loss, head_logits, init_head
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
-from repro_torch.models.common import init_rmsnorm, out_proj, rmsnorm, rope_angles
+from repro_torch.models.common import init_rmsnorm, linear_opts, rmsnorm, rope_angles
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> dict:
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    lin = dict(kind=cfg.linear_kind, order=cfg.linear_order, rank=cfg.linear_rank)
     return {
         "ln1": init_rmsnorm(cfg.d_model, cfg.param_dtype, device),
         "attn": A.init_attention(gen, cfg, device),
         "ln2": init_rmsnorm(cfg.d_model, cfg.param_dtype, device),
         "ffn": F.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                          cfg.param_dtype, device),
+                          cfg.param_dtype, device, **lin),
     }
 
 
@@ -68,8 +69,9 @@ def apply_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, cos: torc
     h = rmsnorm(p["ln1"], x)
     q, k, v = A.attention_qkv(p["attn"], cfg, h, cos, sin)
     o = A.flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    x = x + out_proj(p["attn"]["wo"], o, cfg.dtype, cfg.d_model)
-    return x + F.ffn(p["ffn"], rmsnorm(p["ln2"], x), cfg.mlp_type, cfg.dtype)
+    x = x + A.attention_out(p["attn"], cfg, o)
+    return x + F.ffn(p["ffn"], rmsnorm(p["ln2"], x), cfg.mlp_type, cfg.dtype,
+                     dims=(cfg.d_model, cfg.d_ff), **linear_opts(cfg))
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ from repro_torch.core.embedding import embed_lookup
 from repro_torch.kernels.flash_attn import ops as FOPS
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
-from repro_torch.models.common import out_proj, qkv_proj, rmsnorm, rope_angles
+from repro_torch.models.common import linear_opts, qkv_proj, rmsnorm, rope_angles
 from repro_torch.models.transformer import layer_kinds, lm_logits_last
 from repro_torch.serve.cache import TRASH_PAGE, gather_pages
 
@@ -112,10 +112,11 @@ def decode_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, cache: d
     if kind != "attn":
         raise NotImplementedError(f"decode for layer kind {kind!r} is not ported yet")
     dt = cfg.dtype
+    opts = linear_opts(cfg)
     h = rmsnorm(p["ln1"], x)
-    q = qkv_proj(p["attn"]["wq"], h, dt, cfg.num_heads, cfg.head_dim)
-    k = qkv_proj(p["attn"]["wk"], h, dt, cfg.num_kv_heads, cfg.head_dim)
-    v = qkv_proj(p["attn"]["wv"], h, dt, cfg.num_kv_heads, cfg.head_dim)
+    q = qkv_proj(p["attn"]["wq"], h, dt, cfg.num_heads, cfg.head_dim, **opts)
+    k = qkv_proj(p["attn"]["wk"], h, dt, cfg.num_kv_heads, cfg.head_dim, **opts)
+    v = qkv_proj(p["attn"]["wv"], h, dt, cfg.num_kv_heads, cfg.head_dim, **opts)
     if cfg.qk_norm:
         q = rmsnorm(p["attn"]["q_norm"], q)
         k = rmsnorm(p["attn"]["k_norm"], k)
@@ -129,8 +130,9 @@ def decode_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, cache: d
         o, ck, cv = kv_decode_attention(cfg, q, k, v, cache["k"], cache["v"],
                                         step, step + 1)
         new_cache = {"k": ck, "v": cv}
-    x = x + out_proj(p["attn"]["wo"], o, dt, cfg.d_model)
-    x = x + F.ffn(p["ffn"], rmsnorm(p["ln2"], x), cfg.mlp_type, dt)
+    x = x + A.attention_out(p["attn"], cfg, o)
+    x = x + F.ffn(p["ffn"], rmsnorm(p["ln2"], x), cfg.mlp_type, dt,
+                  dims=(cfg.d_model, cfg.d_ff), **opts)
     return x, new_cache
 
 
@@ -190,11 +192,13 @@ def prefill_block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, cache: 
     """x (B, C, d) chunk continuing per-slot caches at offsets step (B,);
     rows past lens_b are garbage (ignored downstream). Returns (x, cache)."""
     dt = cfg.dtype
+    opts = linear_opts(cfg)
     h = rmsnorm(p["ln1"], x)
     o, new_cache = _chunk_attention(cfg, kind, p["attn"], h, cache, ptab, step, lens,
                                     cos, sin)
-    x = x + out_proj(p["attn"]["wo"], o, dt, cfg.d_model)
-    x = x + F.ffn(p["ffn"], rmsnorm(p["ln2"], x), cfg.mlp_type, dt)
+    x = x + A.attention_out(p["attn"], cfg, o)
+    x = x + F.ffn(p["ffn"], rmsnorm(p["ln2"], x), cfg.mlp_type, dt,
+                  dims=(cfg.d_model, cfg.d_ff), **opts)
     return x, new_cache
 
 

@@ -17,8 +17,14 @@ in the last bit, times |v| up to about 5.
 
 The training legs: the kron_gather stats leg atol 1e-5 + rtol 1e-4 on the
 moments (the kernel takes them by the separable formula); its backward
-atol 1e-5·max|dF| + rtol 1e-4 (fp32 atomicAdd in no fixed order over up
-to N rows per factor column). The fused CE forward: atol 1e-4 + rtol 1e-5
+atol 1e-5·max|dF| + rtol 1e-4 (a token-order sum over up to N rows per
+factor column, against the plain version's index_add_), and two runs
+equal bit for bit on repeated ids. The kron_matmul backward (ket linears):
+dx and dF within atol 1e-5·max + rtol 1e-4 of the plain version (sums of
+r·t1 terms for dx, of up to B·t1 for dF, in another order: per-chunk
+partials added in chunk order), within four times the plain version's
+own distance (or 1e-6 of the largest entry) of a float64 backward, and two
+runs equal bit for bit. The fused CE forward: atol 1e-4 + rtol 1e-5
 on the losses (exponential sums over up to 152,100 columns in another
 order), atol 1e-5 + rtol 1e-5 on m, rtol 2e-4 on l, which carries the
 logits' absolute rounding (about 1e-4 at |logit| ~ 100 with these
@@ -105,10 +111,10 @@ MATMUL = [(2, (8, 8), (32, 32), 3, 64, 1024), (4, (8, 4), (17, 13), 5, 29, 200),
 def test_kron_matmul_kernel_matches_plain(dev, rank, q, t, b, d_in, out_dim):
     f = _factors(dev, rank, q, t)
     x = torch.randn((b, d_in), device=dev)
-    before = M.launches
+    before = M.launches["kron_matmul_fwd"]
     got = M.kron_matmul(f, x, out_dim)
     torch.cuda.synchronize()
-    assert M.launches == before + 1
+    assert M.launches["kron_matmul_fwd"] == before + 1
     want = M.kron_matmul(f, x, out_dim, use_kernel=False)
     assert got.shape == (b, out_dim) and got.is_contiguous()
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
@@ -306,6 +312,96 @@ def test_smoke_training_kernel_route_matches_plain(dev):
     (l_k, p_k, n_k), (l_p, p_p, n_p) = runs
     assert n_k == {"kron_gather_fwd": 0, "kron_gather_fwd_stats": 3, "kron_gather_bwd": 3,
                    "kron_ce_fwd": 3, "kron_ce_bwd": 3}
+    assert not any(n_p.values())
+    torch.testing.assert_close(l_k, l_p, atol=1e-5, rtol=1e-4)
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_k, p_p)])
+    assert diff.max().item() <= 2 * 3 * tcfg.optimizer.lr
+    assert (diff > 1e-5).float().mean().item() < 1e-3
+
+
+# (rank, q, t, B, d_in, out_dim): the smoke config's ket linears, a padded
+# case (d_in < prod q, out_dim < prod t), and the four qwen3-1.7b ket-linear
+# shapes at rank 8 (q/o, k/v, wi/wg, FFN wo) at 2,048 tokens
+KET = [(8, (8, 8), (8, 4), 37, 64, 32), (8, (8, 8), (16, 12), 37, 64, 192),
+       (8, (16, 12), (8, 8), 37, 192, 64), (4, (8, 4), (17, 13), 5, 29, 200),
+       (8, (64, 32), (64, 32), 2048, 2048, 2048), (8, (64, 32), (32, 32), 2048, 2048, 1024),
+       (8, (64, 32), (96, 64), 2048, 2048, 6144), (8, (96, 64), (64, 32), 2048, 6144, 2048)]
+
+
+@pytest.mark.parametrize("rank,q,t,b,d_in,out_dim", KET)
+def test_kron_matmul_backward_kernel_matches_plain(dev, rank, q, t, b, d_in, out_dim):
+    f = _factors(dev, rank, q, t, seed=2)
+    x = torch.randn((b, d_in), device=dev)
+    g = torch.randn((b, out_dim), device=dev)
+    before = dict(M.launches)
+    dx, dfs = M.kron_matmul_bwd_cuda(f, x, g)
+    torch.cuda.synchronize()
+    assert M.launches == {**before, "kron_matmul_bwd": before["kron_matmul_bwd"] + 1}
+    want_dx, want_dfs = M.kron_matmul_bwd_ref(f, x, g)
+    assert dx.shape == (b, math.prod(q)) and [d.shape for d in dfs] == [a.shape for a in f]
+    exact_dx, exact_dfs = M.kron_matmul_bwd_ref([a.double() for a in f], x.double(),
+                                                g.double())
+    for got, want, exact in zip([dx, *dfs], [want_dx, *want_dfs], [exact_dx, *exact_dfs]):
+        _close_scaled(got, want)
+        err_kernel = (got.double() - exact).abs().max().item()
+        err_plain = (want.double() - exact).abs().max().item()
+        assert err_kernel <= max(4 * err_plain, 1e-6 * exact.abs().max().item())
+    again = M.kron_matmul_bwd_cuda(f, x, g)
+    assert torch.equal(again[0], dx) and all(torch.equal(a, b) for a, b in zip(again[1], dfs))
+
+
+def test_kron_matmul_autograd_routes_agree(dev):
+    f = [a.requires_grad_(True) for a in _factors(dev, 8, (16, 12), (8, 8), seed=3)]
+    x = torch.randn((33, 192), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    grads = []
+    for use_kernel in (None, False):
+        before = dict(M.launches)
+        y = M.kron_matmul(f, x, 64, use_kernel=use_kernel)
+        assert y.dtype == torch.bfloat16
+        grads.append(torch.autograd.grad(y.float().square().sum(), [x, *f]))
+        launched = {k: M.launches[k] - before[k] for k in before}
+        assert launched == ({"kron_matmul_fwd": 1, "kron_matmul_bwd": 1}
+                            if use_kernel is None else {"kron_matmul_fwd": 0,
+                                                        "kron_matmul_bwd": 0})
+    assert grads[0][0].dtype == torch.bfloat16
+    for a, b in zip(*grads):
+        _close_scaled(a.float(), b.float(), rtol=1e-2, scale=1e-2)
+
+
+def test_kron_gather_backward_gives_the_same_bits(dev):
+    f = _factors(dev, 32, (64, 32), (390, 390))
+    ids = torch.randint(0, 390 * 390, (2048,), device=dev, dtype=torch.int32)
+    ids[1:300] = ids[300:599]  # ids that repeat, so columns sum several rows
+    out, stats = G.kron_gather_cuda(f, ids, 2048, True, with_stats=True)
+    g = torch.randn((2048, 2048), device=dev)
+    first = G.kron_gather_bwd_cuda(f, ids, g, stats)
+    second = G.kron_gather_bwd_cuda(f, ids, g, stats)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    untouched = torch.ones(390, dtype=torch.bool, device=dev)
+    untouched[(ids.long() // 390)] = False
+    assert (first[0][:, :, untouched] == 0).all()
+
+
+def test_smoke_ket_training_kernel_route_matches_plain(dev):
+    cfg = get_smoke("qwen3-1.7b", dtype=torch.float32, linear_kind="ket")
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+    runs = []
+    for c in (cfg, dataclasses.replace(cfg, use_kernels=False, linear_use_kernel=False)):
+        state = with_params(MD.init_params(c, seed=0, device=dev))
+        step = make_train_step(c, tcfg)
+        before = dict(M.launches)
+        losses = []
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dcfg, i).items()}
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        runs.append((torch.stack(losses), list(tree_leaves(state["params"])),
+                     {k: M.launches[k] - before[k] for k in before}))
+    (l_k, p_k, n_k), (l_p, p_p, n_p) = runs
+    per_pass = 7 * cfg.num_layers  # seven ket projections per layer
+    # the forward, its per-layer recompute in the backward, one backward each
+    assert n_k == {"kron_matmul_fwd": 3 * 2 * per_pass, "kron_matmul_bwd": 3 * per_pass}
     assert not any(n_p.values())
     torch.testing.assert_close(l_k, l_p, atol=1e-5, rtol=1e-4)
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_k, p_p)])
