@@ -68,7 +68,22 @@ non-zero, printing no result, when anything is missing or any phase fails:
    chunks of 16 and 8 greedy decode steps with ket projections, launch
    counts checked, a profile of one decode step, and one fp32 decode step
    against the plain versions;
-10. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+10. slice 5's kernels (int8 / fp8 serving): the dequant-fused legs of the
+   lookup (8 and 128 ids) and of the chain (the head at B = 8 and 1, the
+   four rank-8 ket projections at B = 8 and 128) in both modes, each
+   against its plain version and timed as in phase 2 beside its bound, its
+   fp32 leg on the dequantized factors, the plain version and a yardstick
+   (``F.embedding`` / ``torch.matmul`` on the dequantized materialized
+   table or weight);
+11. slice 5's path at full width: run (a) of phase 4 with
+   ``quant="int8"`` (a profile of one quantized decode tick), the dense
+   raw steps of phase 3 with ``quant="fp8"`` (8 decode steps, an fp32 step
+   of the quantized model against the plain versions), ket serving at
+   rank 8 with ``quant="int8"`` (the same checks); exact launch counts
+   (no fp32 leg launched), the stored bytes of the embedding, head and ket
+   linears per mode, and the share of greedy tokens that agree with the
+   fp32 run of the same weights (a report, not a gate);
+12. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 No depth is cut: every path runs the published 28 layers (the whole
 script takes a few minutes on an H100).
@@ -346,14 +361,19 @@ def init_params(torch, dev):
     return params
 
 
-def drive_main_path(torch, dev, params):
-    """Phase 3: the full config serving 8 prompts, launch counts checked."""
+def drive_main_path(torch, dev, params, quant: str = "none", steps: int = NEW_TOKENS):
+    """Phase 3: the full config serving 8 prompts, launch counts checked;
+    with ``quant`` (phase 11) on ``params`` quantized here, ``steps`` decode
+    steps. Returns the launches and the greedy tokens (steps + 1, 8)."""
     from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_params
     from repro_torch.kernels.kron_gather import ops as G
     from repro_torch.kernels.kron_matmul import ops as M
     from repro_torch.models import model as MD
 
     cfg = get_config(ARCH)
+    tag = "main" if quant == "none" else f"{quant} serve"
+    params = quantize_params(params, quant)
     C = cfg.prefill_chunk
     gen = torch.Generator(device=dev).manual_seed(2)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
@@ -378,22 +398,24 @@ def drive_main_path(torch, dev, params):
         tok = logits.argmax(-1).to(torch.int32)
         generated = [tok]
         t0 = time.perf_counter()
-        for _ in range(NEW_TOKENS):
+        for _ in range(steps):
             logits, cache = MD.serve_step_fn(params, cfg, cache, tok)
             tok = logits.argmax(-1).to(torch.int32)
             generated.append(tok)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
-        launches = {"kron_gather_fwd": G.launches["kron_gather_fwd"],
-                    "kron_matmul_fwd": M.launches["kron_matmul_fwd"]}
+        launches = {**{k: G.launches[k] for k in ("kron_gather_fwd", "kron_gather_fwd_quant")},
+                    **{k: M.launches[k] for k in ("kron_matmul_fwd", "kron_matmul_fwd_quant")}}
 
     n_chunks = PROMPT_LEN // C
-    expected = n_chunks + NEW_TOKENS  # one launch per prefill chunk and per step
-    log(f"[main] launches {launches} (expected {expected} each: {n_chunks} prefill "
-        f"chunks + {NEW_TOKENS} decode steps)")
-    for name, n in launches.items():
-        if n != expected:
-            fail(f"{name} launched {n} times on the main path, expected {expected}")
+    calls = n_chunks + steps  # one launch of each leg per prefill chunk and per step
+    leg = "" if quant == "none" else "_quant"
+    expected = {k: 0 for k in launches}
+    expected[f"kron_gather_fwd{leg}"] = expected[f"kron_matmul_fwd{leg}"] = calls
+    log(f"[{tag}] launches {launches} (expected {expected}: {n_chunks} prefill chunks + "
+        f"{steps} decode steps)")
+    if launches != expected:
+        fail(f"{tag}: launches {launches}, expected {expected}")
     if tuple(logits.shape) != (BATCH, cfg.vocab_size) or logits.dtype != torch.float32:
         fail(f"logits {tuple(logits.shape)} {logits.dtype}, expected ({BATCH}, "
              f"{cfg.vocab_size}) float32")
@@ -402,19 +424,20 @@ def drive_main_path(torch, dev, params):
     toks = torch.stack(generated)
     if toks.min() < 0 or toks.max() >= cfg.vocab_size:
         fail("a generated token lies outside the vocabulary")
-    if not torch.equal(cache["step"], torch.full_like(cache["step"], PROMPT_LEN + NEW_TOKENS)):
+    if not torch.equal(cache["step"], torch.full_like(cache["step"], PROMPT_LEN + steps)):
         fail(f"cache steps {cache['step'].tolist()}")
-    log(f"[main] prefill {BATCH}x{PROMPT_LEN} tokens in {n_chunks} chunks: {t_prefill:.3f} s "
-        f"({BATCH * PROMPT_LEN / t_prefill:.0f} prompt tok/s); decode {NEW_TOKENS} steps: "
-        f"{t_decode:.3f} s ({BATCH * NEW_TOKENS / t_decode:.0f} gen tok/s, "
-        f"{t_decode / NEW_TOKENS * 1e3:.2f} ms/step); tokens in [0, {cfg.vocab_size}), "
+    log(f"[{tag}] prefill {BATCH}x{PROMPT_LEN} tokens in {n_chunks} chunks: {t_prefill:.3f} s "
+        f"({BATCH * PROMPT_LEN / t_prefill:.0f} prompt tok/s); decode {steps} steps: "
+        f"{t_decode:.3f} s ({BATCH * steps / t_decode:.0f} gen tok/s, "
+        f"{t_decode / steps * 1e3:.2f} ms/step); tokens in [0, {cfg.vocab_size}), "
         f"logits finite")
 
-    with torch.inference_mode():
-        profile_call(torch, "one prefill chunk", lambda: MD.prefill_chunk_fn(
-            params, cfg, cache, prompts[:, :C], lens), t_prefill / n_chunks * 1e3)
-        profile_call(torch, "one decode step", lambda: MD.serve_step_fn(
-            params, cfg, cache, tok), t_decode / NEW_TOKENS * 1e3)
+    if quant == "none":
+        with torch.inference_mode():
+            profile_call(torch, "one prefill chunk", lambda: MD.prefill_chunk_fn(
+                params, cfg, cache, prompts[:, :C], lens), t_prefill / n_chunks * 1e3)
+            profile_call(torch, "one decode step", lambda: MD.serve_step_fn(
+                params, cfg, cache, tok), t_decode / steps * 1e3)
 
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     outs = []
@@ -424,11 +447,11 @@ def drive_main_path(torch, dev, params):
             outs.append(MD.serve_step_fn(params, c, cache32, tok)[0])
             del cache32
     diff = (outs[0] - outs[1]).abs().max().item()
-    log(f"[main] fp32 decode step, kernel route vs use_kernels=False: max |dlogit| = "
+    log(f"[{tag}] fp32 decode step, kernel route vs use_kernels=False: max |dlogit| = "
         f"{diff:.3e} (atol {MODEL_F32_ATOL:g}), |logit| max {outs[1].abs().max().item():.3f}")
     if not diff <= MODEL_F32_ATOL:
-        fail("the kernel route and the plain versions disagree on the full model")
-    return launches
+        fail(f"{tag}: the kernel route and the plain versions disagree on the full model")
+    return launches, torch.stack(generated)
 
 
 def paged_inputs(torch, dev, cfg, dtype, NP, lens, gen):
@@ -569,8 +592,8 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
         if eng.decode_ticks > before:
             decode_ms.append(dt)
         eng.check()
-    launches = {"kron_gather_fwd": G.launches["kron_gather_fwd"],
-                "kron_matmul_fwd": M.launches["kron_matmul_fwd"],
+    launches = {**{k: G.launches[k] for k in ("kron_gather_fwd", "kron_gather_fwd_quant")},
+                **{k: M.launches[k] for k in ("kron_matmul_fwd", "kron_matmul_fwd_quant")},
                 "paged_split": FA.launches["paged_split"],
                 "paged_combine": FA.launches["paged_combine"]}
     st = eng.stats()
@@ -587,9 +610,14 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
         f"{st['p50_latency_s']:.3f} s p95 {st['p95_latency_s']:.3f} s, TTFT p50 "
         f"{st['ttft_p50_s']:.3f} s; decode tick median "
         f"{statistics.median(decode_ms):.2f} ms over {len(decode_ms)}")
-    expected = {"kron_gather_fwd": st["ticks"], "kron_matmul_fwd": st["ticks"],
+    # one lookup and one head chain per tick, on the quantized legs when
+    # the engine calibrated its parameters, and none on the others
+    leg = "_quant" if kw.get("quant", "none") != "none" else ""
+    expected = {"kron_gather_fwd": 0, "kron_gather_fwd_quant": 0, "kron_matmul_fwd": 0,
+                "kron_matmul_fwd_quant": 0,
                 "paged_split": cfg.num_layers * st["decode_ticks"],
                 "paged_combine": cfg.num_layers * st["decode_ticks"]}
+    expected[f"kron_gather_fwd{leg}"] = expected[f"kron_matmul_fwd{leg}"] = st["ticks"]
     log(f"[engine {what}] launches {launches} (expected {expected})")
     if launches != expected:
         fail(f"engine {what}: launches {launches}, expected {expected}")
@@ -599,11 +627,13 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
     for r in reqs:
         if len(r.output) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.output):
             fail(f"engine {what}: request {r.uid} gave {r.output}")
-    return eng, st, launches, decode_ms
+    return eng, st, launches, [r.output for r in reqs]
 
 
-def drive_engine(torch, dev, params):
-    """Phase 4: slice 2's path, ServingEngine at full width, runs (a) and (b)."""
+def drive_engine(torch, dev, params, quant: str = "none"):
+    """Phase 4: slice 2's path, ServingEngine at full width, runs (a) and
+    (b); with ``quant`` (phase 11) run (a) only, the engine calibrating
+    ``params`` at construction. Returns run (a)'s launches and outputs."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import Request
     from repro_torch.serve.faultinject import shared_prefix_prompts
@@ -611,11 +641,12 @@ def drive_engine(torch, dev, params):
     cfg = get_config(ARCH)
     prompts = shared_prefix_prompts(4, ENGINE_REQUESTS, SHARED_PREFIX,
                                     PROMPT_LEN - SHARED_PREFIX, cfg.vocab_size)
+    what = "a" if quant == "none" else f"a {quant}"
     with torch.inference_mode():
-        eng, st, launches, _ = run_engine(torch, dev, cfg, params, prompts, "a",
-                                          prefix_cache=True)
+        eng, st, launches, outputs = run_engine(torch, dev, cfg, params, prompts, what,
+                                                prefix_cache=True, quant=quant)
         if st["prefix_hit_pages"] <= 0:
-            fail("engine a: the shared prefix never hit the prefix cache")
+            fail(f"engine {what}: the shared prefix never hit the prefix cache")
 
         # one more decode tick, profiled: 8 short requests, prefilled, then
         # three unprofiled decode ticks give the wall time per tick
@@ -633,19 +664,22 @@ def drive_engine(torch, dev, params):
             if eng.decode_ticks != before + 1:
                 fail("the profiled engine tick is not a decode tick")
         before = eng.decode_ticks
-        profile_call(torch, "one engine decode tick (8 slots, paged)", eng.step,
+        mode = "" if quant == "none" else f", {quant}"
+        profile_call(torch, f"one engine decode tick (8 slots, paged{mode})", eng.step,
                      statistics.median(walls))
         if eng.decode_ticks != before + 1:
             fail("the profiled engine tick is not a decode tick")
         eng.run_until_drained()
         del eng
         torch.cuda.empty_cache()
+        if quant != "none":
+            return launches, outputs
 
         _, st_b, _, _ = run_engine(torch, dev, cfg, params, prompts, "b",
                                    num_pages=TIGHT_PAGES)
         if st_b["preemptions"] < 1:
             fail(f"engine b: no preemption on a {TIGHT_PAGES}-page pool")
-    return launches
+    return launches, outputs
 
 
 def check_paged_step_fp32(torch, dev, params):
@@ -908,8 +942,9 @@ def drive_training(torch, dev, cfg, tag: str):
     ket = 7 * cfg.num_layers if cfg.linear_kind == "ket" else 0
     S = TRAIN_STEPS
     expected = {"kron_gather_fwd": 0, "kron_gather_fwd_stats": S, "kron_gather_bwd": S,
-                "kron_ce_fwd": S, "kron_ce_bwd": S, "kron_matmul_fwd": 2 * ket * S,
-                "kron_matmul_bwd": ket * S}
+                "kron_gather_fwd_quant": 0, "kron_ce_fwd": S, "kron_ce_bwd": S,
+                "kron_matmul_fwd": 2 * ket * S, "kron_matmul_bwd": ket * S,
+                "kron_matmul_fwd_quant": 0}
     log(f"[{tag}] launches {launches} (expected {expected}: one per training leg per "
         f"step; per ket projection per step two forwards and one backward)")
     if launches != expected:
@@ -1095,22 +1130,207 @@ def check_ket_kernels(torch, dev):
     }]
 
 
-def drive_ket_serving(torch, dev):
+def ket_stored_bytes(params) -> dict:
+    """Bytes held by the ket factor stacks of ``params`` (payloads and
+    scales, or fp32 factors): the embedding, the head, the ket linears."""
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    def factors(tree):
+        if isinstance(tree, dict):
+            if "factors" in tree:
+                return nbytes(tree["factors"])
+            return sum(factors(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(factors(v) for v in tree)
+        return 0
+
+    return {"embedding": factors(params["embed"]), "head": factors(params["head"]),
+            "ket linears": factors(params["layers"])}
+
+
+def check_quant_kernels(torch, dev):
+    """Phase 10: the dequant-fused legs (slice 5) at full width in int8 and
+    fp8, each against its plain version, timed beside its bound, its fp32
+    leg on the dequantized factors, the plain version and a yardstick on
+    the dequantized materialized table or weight. Returns the JSON rows of
+    the int8 decode shapes (8 ids; the head at B = 8)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import embedding_for, head_for
+    from repro_torch.core import ketops
+    from repro_torch.core import quant as Q
+    from repro_torch.core.kron import mixed_radix_digits
+    from repro_torch.kernels.kron_gather import ops as G
+    from repro_torch.kernels.kron_matmul import ops as M
+    from repro_torch.models.common import linear_init
+
+    cfg = get_config(ARCH)
+    espec, hspec = embedding_for(cfg).spec, head_for(cfg).spec
+    gen = torch.Generator(device=dev).manual_seed(10)
+    ef32 = ketops.init(gen, espec, dev)["factors"]
+    hf32 = ketops.init(gen, hspec, dev)["factors"]
+    r, (q1, q2), (t1, t2) = espec.rank, espec.resolved_q(), espec.resolved_t()
+    P, V = espec.in_dim, cfg.vocab_size
+    scratch = torch.empty(16 * 2 ** 20, dtype=torch.int32, device=dev)  # 64 MB > L2
+    flush = scratch.zero_
+    results, ket_sums = [], {}
+
+    def timed(entry, kern, plain, fp32, lib, iters=50):
+        entry.update(ms=time_ms(torch, kern, flush, iters=iters),
+                     plain_ms=time_ms(torch, plain, flush, iters=iters),
+                     fp32_ms=time_ms(torch, fp32, flush, iters=iters),
+                     library_ms=time_ms(torch, lib, flush, iters=iters))
+        return entry
+
+    def split(fq):
+        return [f["q"] for f in fq], [f["scale"] for f in fq], [Q.as_f32(f) for f in fq]
+
+    for mode in ("int8", "fp8"):
+        ep, es, edq = split([Q.quantize(f, mode) for f in ef32])
+        log(f"[kernels] kron_gather_fwd_quant ({mode}): payloads {tuple(ep[0].shape)}, "
+            f"{tuple(ep[1].shape)} {ep[0].dtype}, fp32 ({r}, 1, 1) scales, LN on, out (N, {P})")
+        table = torch.cat([G.kron_gather(edq, part, P, True) for part in torch.split(
+            torch.arange(V, device=dev, dtype=torch.int32), 8192)])
+        for n in (BATCH, BATCH * cfg.prefill_chunk):
+            ids = torch.randint(0, V, (n,), generator=gen, device=dev, dtype=torch.int32)
+            ids[0], ids[-1] = 0, V - 1
+            got = G.kron_gather_quant(ep, es, ids, P, True)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, G.kron_gather_quant(ep, es, ids, P, True,
+                                                          use_kernel=False),
+                          GATHER_TOL, f"{mode} N={n}")
+            d1, d2 = mixed_radix_digits(ids.long(), (t1, t2))
+            cols = d1.unique().numel() * r * q1 + d2.unique().numel() * r * q2  # 1 B each
+            b_ms, b_by = bound(4 * n + cols + 8 * r + 4 * n * P, 2.0 * n * r * (P + q1 + q2))
+            ids_long = ids.long()
+            results.append(timed({
+                "name": "kron_gather_fwd_quant", "route": "cuda", "mode": mode,
+                "source": "src/repro_torch/csrc/kron_gather.cu",
+                "replaces": "src/repro/kernels/kron_gather/kron_gather.py:57",
+                "shape": f"ids ({n},) -> ({n}, {P})", "max_abs_err": err,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library": "F.embedding on the dequantized materialized 1.24 GB table"},
+                lambda: G.kron_gather_quant(ep, es, ids, P, True),
+                lambda: G.kron_gather_quant(ep, es, ids, P, True, use_kernel=False),
+                lambda: G.kron_gather(edq, ids, P, True),
+                lambda: F.embedding(ids_long, table)))
+        del table
+
+        hp, hs, hdq = split([Q.quantize(f, mode) for f in hf32])
+        log(f"[kernels] kron_matmul_fwd_quant ({mode}): the head, payloads "
+            f"{tuple(hp[0].shape)}, {tuple(hp[1].shape)}, out (B, {V})")
+        head = M.kron_matmul(hdq, torch.eye(P, device=dev), V)  # (P, V) dequantized
+        for b in (BATCH, 1):
+            x = torch.randn((b, P), generator=gen, device=dev)
+            got = M.kron_matmul_quant(hp, hs, x, V)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, M.kron_matmul_quant(hp, hs, x, V, use_kernel=False),
+                          MATMUL_TOL, f"{mode} head B={b}")
+            flops = 2.0 * b * (r * t1 * q1 * q2 + r * q2 * t1 * t2)
+            b_ms, b_by = bound(4 * b * P + sum(f.numel() for f in hp) + 8 * r + 4 * b * V,
+                               flops)
+            results.append(timed({
+                "name": "kron_matmul_fwd_quant", "route": "cuda", "mode": mode,
+                "source": "src/repro_torch/csrc/kron_matmul.cu",
+                "replaces": "src/repro/kernels/kron_matmul/kron_matmul.py:54",
+                "shape": f"x ({b}, {P}) -> ({b}, {V})", "max_abs_err": err,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library": "torch.matmul on the dequantized materialized head"},
+                lambda: M.kron_matmul_quant(hp, hs, x, V),
+                lambda: M.kron_matmul_quant(hp, hs, x, V, use_kernel=False),
+                lambda: M.kron_matmul(hdq, x, V), lambda: torch.matmul(x, head)))
+        del head
+
+        for name, d_in, d_out, mult in KET_SHAPES:
+            fp, fs, fdq = split(linear_init(gen, d_in, d_out, device=dev, kind="ket",
+                                            rank=KET_RANK, quant=mode)["factors"])
+            (rk, a1, b1), (_, a2, b2) = fp[0].shape, fp[1].shape
+            w = M.kron_matmul(fdq, torch.eye(d_in, device=dev), d_out)  # dequantized weight
+            for b in (BATCH, BATCH * cfg.prefill_chunk):
+                x = torch.randn((b, d_in), generator=gen, device=dev)
+                got = M.kron_matmul_quant(fp, fs, x, d_out)
+                torch.cuda.synchronize()
+                err = max_err(torch, got, M.kron_matmul_quant(fp, fs, x, d_out,
+                                                              use_kernel=False),
+                              MATMUL_TOL, f"{mode} ket {name} B={b}")
+                b_ms, b_by = bound(4 * b * (d_in + d_out) + sum(f.numel() for f in fp)
+                                   + 8 * rk, 2.0 * b * (rk * b1 * a1 * a2 + rk * a2 * b1 * b2))
+                e = timed({"bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err},
+                          lambda: M.kron_matmul_quant(fp, fs, x, d_out),
+                          lambda: M.kron_matmul_quant(fp, fs, x, d_out, use_kernel=False),
+                          lambda: M.kron_matmul(fdq, x, d_out), lambda: torch.matmul(x, w),
+                          iters=50 if b == BATCH else 20)
+                acc = ket_sums.setdefault((mode, b), dict.fromkeys(
+                    ("ms", "plain_ms", "fp32_ms", "library_ms", "bound_ms"), 0.0))
+                for k in acc:
+                    acc[k] += mult * e[k]
+            del w
+        torch.cuda.empty_cache()
+    del scratch
+    torch.cuda.empty_cache()
+    for e in results:
+        log(f"  {e['name']:21s} {e['mode']:4s} {e['shape']:28s} kernel {e['ms']:.4f} ms  "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})  fp32 leg {e['fp32_ms']:.4f} ms  "
+            f"plain {e['plain_ms']:.4f} ms  library {e['library_ms']:.4f} ms")
+    for (mode, b), t in ket_sums.items():
+        log(f"  one layer's 7 ket projections, {mode} at {b} tokens: kernel {t['ms']:.4f} ms  "
+            f"bound {t['bound_ms']:.4f} ms  fp32 leg {t['fp32_ms']:.4f} ms  plain "
+            f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms")
+    # the JSON line keeps the engine's mode and decode shapes
+    return [e for e in results if e["mode"] == "int8"
+            and e["shape"].startswith((f"ids ({BATCH},)", f"x ({BATCH},"))]
+
+
+def drive_ket_serving(torch, dev, quant: str = "none"):
     """Phase 9: ket serving at full width, launch counts checked, one decode
-    step profiled, one fp32 decode step against the plain versions."""
+    step profiled, one fp32 decode step against the plain versions; with
+    ``quant`` (phase 11) the same weights quantized, and their stored bytes
+    per mode against the specs' count. Returns the greedy tokens."""
+    from repro_torch.configs.base import embedding_for, head_for
+    from repro_torch.core.embedding import embedding_num_bytes
+    from repro_torch.core.logits import head_num_bytes
+    from repro_torch.core.quant import quantize_params, storage_bytes
     from repro_torch.kernels.kron_gather import ops as G
     from repro_torch.kernels.kron_matmul import ops as M
     from repro_torch.models import model as MD
 
     cfg = ket_config()
     params = MD.init_params(cfg, seed=0, device=dev)
+    tag = "ket serve" if quant == "none" else f"ket serve {quant}"
+    if quant != "none":
+        stored = {}
+        for mode in ("none", "int8", "fp8"):
+            got = ket_stored_bytes(quantize_params(params, mode))
+            # the specs' count: the embedding and head specs, and the ket
+            # linears' factor shapes under the mode
+            shapes = [tuple(f.shape) for layer in params["layers"]
+                      for part in (layer["attn"], layer["ffn"]) for p in part.values()
+                      if isinstance(p, dict) and "factors" in p for f in p["factors"]]
+            mcfg = dataclasses.replace(cfg, quant=mode)
+            want = {"embedding": embedding_num_bytes(embedding_for(mcfg)),
+                    "head": head_num_bytes(head_for(mcfg)),
+                    "ket linears": storage_bytes(shapes, mode)}
+            if got != want:
+                fail(f"stored bytes {got} under {mode}, the specs count {want}")
+            stored["fp32" if mode == "none" else mode] = got
+        for part in stored["fp32"]:
+            log(f"[{tag}] stored bytes of the {part}: " + ", ".join(
+                f"{mode} {b[part]:,} B" for mode, b in stored.items())
+                + f" ({stored['fp32'][part] / stored['int8'][part]:.2f}x less in int8)")
+        params = quantize_params(params, quant)
     C = cfg.prefill_chunk
     gen = torch.Generator(device=dev).manual_seed(9)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
                             device=dev, dtype=torch.int32)
     lens = torch.full((BATCH,), C, device=dev, dtype=torch.int32)
-    log(f"[ket serve] {cfg.name}, ket linears at rank {cfg.linear_rank}: "
-        f"{MD.param_count(params):,} params; {BATCH} prompts of {PROMPT_LEN} tokens, "
+    log(f"[{tag}] {cfg.name}, ket linears at rank {cfg.linear_rank}: "
+        f"{MD.param_count(params):,} stored values; {BATCH} prompts of {PROMPT_LEN} tokens, "
         f"{KET_DECODE_STEPS} decode steps")
     with torch.inference_mode():
         warm = MD.init_cache(cfg, BATCH, MAX_LEN, device=dev)  # first-call set-up
@@ -1135,28 +1355,31 @@ def drive_ket_serving(torch, dev):
             generated.append(tok)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
-        launches = {"kron_gather_fwd": G.launches["kron_gather_fwd"], **M.launches}
+        launches = {**{k: G.launches[k] for k in ("kron_gather_fwd", "kron_gather_fwd_quant")},
+                    **M.launches}
     n_chunks = PROMPT_LEN // C
     calls = n_chunks + KET_DECODE_STEPS
-    expected = {"kron_gather_fwd": calls,
-                "kron_matmul_fwd": calls * (7 * cfg.num_layers + 1), "kron_matmul_bwd": 0}
-    log(f"[ket serve] launches {launches} (expected {expected}: per call one lookup, "
+    leg = "" if quant == "none" else "_quant"
+    expected = {k: 0 for k in launches}
+    expected[f"kron_gather_fwd{leg}"] = calls
+    expected[f"kron_matmul_fwd{leg}"] = calls * (7 * cfg.num_layers + 1)
+    log(f"[{tag}] launches {launches} (expected {expected}: per call one lookup, "
         f"7 ket projections per layer and the head)")
     if launches != expected:
-        fail(f"ket serving: launches {launches}, expected {expected}")
+        fail(f"{tag}: launches {launches}, expected {expected}")
     if tuple(logits.shape) != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
-        fail(f"ket serving: logits {tuple(logits.shape)}, finite "
+        fail(f"{tag}: logits {tuple(logits.shape)}, finite "
              f"{bool(torch.isfinite(logits).all())}")
     toks = torch.stack(generated)
     if toks.min() < 0 or toks.max() >= cfg.vocab_size:
-        fail("ket serving: a generated token lies outside the vocabulary")
-    log(f"[ket serve] prefill {BATCH}x{PROMPT_LEN} tokens in {n_chunks} chunks: "
+        fail(f"{tag}: a generated token lies outside the vocabulary")
+    log(f"[{tag}] prefill {BATCH}x{PROMPT_LEN} tokens in {n_chunks} chunks: "
         f"{t_prefill:.3f} s ({BATCH * PROMPT_LEN / t_prefill:.0f} prompt tok/s); decode "
         f"{KET_DECODE_STEPS} steps: {t_decode:.3f} s ({BATCH * KET_DECODE_STEPS / t_decode:.0f}"
         f" gen tok/s, {t_decode / KET_DECODE_STEPS * 1e3:.2f} ms/step); tokens in the "
         f"vocabulary, logits finite")
     with torch.inference_mode():
-        profile_call(torch, "one ket decode step", lambda: MD.serve_step_fn(
+        profile_call(torch, f"one {tag} decode step", lambda: MD.serve_step_fn(
             params, cfg, cache, tok), t_decode / KET_DECODE_STEPS * 1e3,
             groups={"kron_matmul kernels": ["kron_stage"], "kron_gather kernels":
                     ["kron_gather2"], "GEMMs": ["gemm", "nvjet", "xmma", "cutlass"],
@@ -1169,11 +1392,23 @@ def drive_ket_serving(torch, dev):
             outs.append(MD.serve_step_fn(params, c, cache32, tok)[0])
             del cache32
     diff = (outs[0] - outs[1]).abs().max().item()
-    log(f"[ket serve] fp32 decode step, kernel route vs plain: max |dlogit| = {diff:.3e} "
+    log(f"[{tag}] fp32 decode step, kernel route vs plain: max |dlogit| = {diff:.3e} "
         f"(atol {MODEL_F32_ATOL:g}), |logit| max {outs[1].abs().max().item():.3f}")
     if not diff <= MODEL_F32_ATOL:
-        fail("ket serving: the kernel route and the plain versions disagree")
-    return launches
+        fail(f"{tag}: the kernel route and the plain versions disagree")
+    return launches, toks
+
+
+def agree(what: str, got, want) -> None:
+    """Report the share of greedy tokens of a quantized run equal to the
+    fp32 run's on the same weights, both (sequences, positions). The
+    decodes run free, so a first difference changes the context after it;
+    the first position has the same context in both. A report, not a
+    gate."""
+    same = (got.cpu() == want.cpu()).float()
+    log(f"[quant] {what}: {same.mean().item():.1%} of {same.numel()} greedy tokens equal "
+        f"the fp32 run's on the same weights; first position {same[:, 0].mean().item():.1%} "
+        f"of {same.shape[0]}")
 
 
 def main() -> None:
@@ -1203,11 +1438,19 @@ def main() -> None:
                 log(f"  {name}: {line.strip()}")
 
     kernels = (check_kernels(torch, dev) + check_paged_kernels(torch, dev)
-               + check_training_kernels(torch, dev) + check_ket_kernels(torch, dev))
+               + check_training_kernels(torch, dev) + check_ket_kernels(torch, dev)
+               + check_quant_kernels(torch, dev))
     params = init_params(torch, dev)
-    launches = drive_main_path(torch, dev, params)  # slice 1's path
-    engine_launches = drive_engine(torch, dev, params)  # slice 2's path, run (a)
+    launches, main_toks = drive_main_path(torch, dev, params)  # slice 1's path
+    engine_launches, engine_outs = drive_engine(torch, dev, params)  # slice 2's, run (a)
     check_paged_step_fp32(torch, dev, params)
+    # slice 5's path: the same weights calibrated to int8 by the engine, and
+    # to fp8 for the raw steps
+    quant_launches, quant_outs = drive_engine(torch, dev, params, quant="int8")
+    agree("engine run (a), int8", torch.tensor(quant_outs), torch.tensor(engine_outs))
+    fp8_launches, fp8_toks = drive_main_path(torch, dev, params, quant="fp8",
+                                             steps=KET_DECODE_STEPS)
+    agree("raw steps, fp8", fp8_toks.T, main_toks[:KET_DECODE_STEPS + 1].T)
     del params
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config
@@ -1223,13 +1466,20 @@ def main() -> None:
         kcfg, use_kernels=False, linear_use_kernel=False), "ket train")
     del state
     torch.cuda.empty_cache()
-    drive_ket_serving(torch, dev)
+    _, ket_toks = drive_ket_serving(torch, dev)  # slice 4's serving
+    ket_quant_launches, ket_quant_toks = drive_ket_serving(torch, dev, quant="int8")
+    agree("ket serving, int8", ket_quant_toks.T, ket_toks.T)
+    log(f"[quant] launches of the quantized legs: engine run (a) int8 "
+        f"{quant_launches}; raw steps fp8 {fp8_launches}; ket serving int8 "
+        f"{ket_quant_launches}")
     # each row's launches come from the path that runs it at that shape
     path_of = {"kron_gather_fwd": launches, "kron_matmul_fwd": launches,
                "paged_split": engine_launches, "paged_combine": engine_launches,
                "kron_gather_fwd_stats": train_launches, "kron_gather_bwd": train_launches,
                "kron_ce_fwd": train_launches, "kron_ce_bwd": train_launches,
-               "kron_matmul_bwd": ket_launches}
+               "kron_matmul_bwd": ket_launches,
+               "kron_gather_fwd_quant": quant_launches,
+               "kron_matmul_fwd_quant": quant_launches}
     for e in kernels:
         e["launches"] = path_of[e["name"]][e["name"]]
     log(json.dumps({"kernels": kernels}))

@@ -3,10 +3,9 @@ read).
 
 Field names and defaults are those of ``repro.configs.base.ModelConfig``;
 ``dtype`` and ``param_dtype`` are torch dtypes. Fields of slices not yet
-ported (MoE, MLA, SSM, quantization, meshes) are left out until their
-slice lands, and so are the TPU tile sizes of the ket linears
-(``linear_tile``, ``linear_block_b``) and their mesh knob
-(``ket_shard_rank``).
+ported (MoE, MLA, SSM, meshes) are left out until their slice lands, and
+so are the TPU tile sizes of the ket linears (``linear_tile``,
+``linear_block_b``) and their mesh knob (``ket_shard_rank``).
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core import quant as Q
 from repro_torch.core.embedding import EmbeddingConfig
 from repro_torch.core.logits import HeadConfig
 
@@ -69,6 +69,13 @@ class ModelConfig:
     # versions for CPU tensors; False = the plain versions everywhere
     linear_use_kernel: Optional[bool] = None
 
+    # low-bit ket factor storage (serving): "none" | "int8" | "fp8". With a
+    # mode, init_params emits the embedding, head and ket-linear factors in
+    # the {"q", "scale"} wire format (core/quant); dense tensors stay as
+    # they are. Quantized payloads are not differentiable: train with
+    # "none" and quantize afterwards (serve/engine.quantize_params)
+    quant: str = "none"
+
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
 
@@ -101,6 +108,8 @@ class ModelConfig:
             raise NotImplementedError(f"mlp_type {self.mlp_type!r} is not ported yet")
         if self.linear_kind not in ("dense", "ket"):
             raise ValueError(f"unknown linear kind {self.linear_kind!r}")
+        if self.quant not in Q.MODES:
+            raise ValueError(f"unknown quant {self.quant!r} (expected {Q.MODES})")
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat policy {self.remat!r}")
 
@@ -118,6 +127,7 @@ def embedding_for(cfg: ModelConfig) -> EmbeddingConfig:
         rank=cfg.embedding_rank,
         use_layernorm=cfg.embedding_layernorm,
         dtype=cfg.param_dtype,
+        quant=cfg.quant,
         use_kernel=cfg.use_kernels,
     )
 
@@ -131,5 +141,6 @@ def head_for(cfg: ModelConfig) -> HeadConfig:
         rank=cfg.head_rank,
         vocab_tile=cfg.head_vocab_tile,
         dtype=cfg.param_dtype,
+        quant=cfg.quant,
         use_kernel=cfg.use_kernels,
     )

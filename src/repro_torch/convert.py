@@ -7,6 +7,13 @@ execution order (group g, pattern position i -> layer g·len(pattern) + i,
 then the remainder). Leaves are numpy arrays on the JAX side, torch
 tensors on the port's. :func:`torch_params_to_numpy` is the exact inverse
 of :func:`jax_params_to_torch`.
+
+Quantized ket factors (core/quant) cross as they are: int8 payloads and
+fp32 scales as any array. fp8 payloads cross as their bits, without
+``ml_dtypes``: a numpy leaf whose dtype is ``float8_e4m3fn`` becomes a
+``torch.float8_e4m3fn`` tensor of the same bits, and such a tensor comes
+back as a ``uint8`` array of its bits (view it as ``float8_e4m3fn`` on the
+JAX side).
 """
 
 from __future__ import annotations
@@ -17,7 +24,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["jax_params_to_torch", "torch_params_to_numpy"]
+__all__ = ["jax_params_to_torch", "torch_params_to_numpy", "array_to_torch",
+           "tensor_to_numpy"]
 
 
 def _map(tree, fn):
@@ -26,6 +34,23 @@ def _map(tree, fn):
     if isinstance(tree, (list, tuple)):
         return [_map(v, fn) for v in tree]
     return fn(tree)
+
+
+def array_to_torch(a, dev: torch.device) -> torch.Tensor:
+    """One numpy leaf -> a tensor on ``dev`` (fp8 by its bits)."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":  # torch.from_numpy has no such dtype
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.uint8).copy())
+        return bits.view(torch.float8_e4m3fn).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> a numpy array (an fp8 tensor as ``uint8`` bits)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.float8_e4m3fn:  # numpy has no such dtype: its bits
+        return t.view(torch.uint8).numpy()
+    return t.numpy()
 
 
 def _index(tree, i: int):
@@ -60,12 +85,13 @@ def jax_params_to_torch(params_np: dict, cfg: ModelConfig, device="cuda") -> dic
         "final_norm": params_np["final_norm"],
         "head": params_np["head"],
     }
-    return _map(tree, lambda a: torch.from_numpy(np.array(a)).to(dev))
+    return _map(tree, lambda a: array_to_torch(a, dev))
 
 
 def torch_params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
-    """The port's parameters -> the JAX param pytree with numpy leaves."""
-    flat = _map(params, lambda t: t.detach().cpu().numpy())
+    """The port's parameters -> the JAX param pytree with numpy leaves;
+    an fp8 payload comes back as a ``uint8`` array of its bits."""
+    flat = _map(params, tensor_to_numpy)
     n_groups, n_rem = _groups(cfg)
     n_pat = len(cfg.layer_pattern)
     layers = flat["layers"]

@@ -16,7 +16,7 @@ import torch
 from repro_torch.core import ketops, word2ketxs
 
 __all__ = ["EmbeddingConfig", "init_embedding", "embed_lookup",
-           "embedding_num_params"]
+           "embedding_num_params", "embedding_num_bytes"]
 
 
 @dataclasses.dataclass(frozen=True, init=False)
@@ -40,6 +40,7 @@ class EmbeddingConfig(ketops.SpecProps):
         t_dims: Optional[tuple[int, ...]] = None,
         use_layernorm: bool = True,
         dtype: Any = torch.float32,
+        quant: str = "none",
         use_kernel: Optional[bool] = None,
     ):
         if kind != "word2ketxs":
@@ -47,7 +48,7 @@ class EmbeddingConfig(ketops.SpecProps):
         spec = ketops.KronSpec(
             in_dim=embed_dim, out_dim=vocab_size, order=order, rank=rank,
             q_dims=q_dims, t_dims=t_dims, use_layernorm=use_layernorm,
-            dtype=dtype, use_kernel=use_kernel).validate()
+            dtype=dtype, quant=quant, use_kernel=use_kernel).validate()
         object.__setattr__(self, "vocab_size", vocab_size)
         object.__setattr__(self, "embed_dim", embed_dim)
         object.__setattr__(self, "kind", kind)
@@ -65,3 +66,8 @@ def embed_lookup(cfg: EmbeddingConfig, params: dict, ids: torch.Tensor) -> torch
 
 def embedding_num_params(cfg: EmbeddingConfig) -> int:
     return ketops.num_params(cfg.spec)
+
+
+def embedding_num_bytes(cfg: EmbeddingConfig) -> int:
+    """Stored bytes, quant-aware (payloads at the quant width + scales)."""
+    return ketops.num_bytes(cfg.spec)

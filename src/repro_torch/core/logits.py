@@ -16,11 +16,12 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import ketops
+from repro_torch.core import quant as Q
 from repro_torch.kernels import kernel_route
 from repro_torch.kernels.kron_logits.ops import fused_kron_ce, kron_ce_tiled
 
 __all__ = ["HeadConfig", "init_head", "head_logits", "head_ce_loss", "head_num_params",
-           "kron_head_logits"]
+           "head_num_bytes", "kron_head_logits"]
 
 
 @dataclasses.dataclass(frozen=True, init=False)
@@ -46,6 +47,7 @@ class HeadConfig(ketops.SpecProps):
         t_dims: Optional[tuple[int, ...]] = None,
         vocab_tile: int = 4,
         dtype: Any = torch.float32,
+        quant: str = "none",
         use_kernel: Optional[bool] = None,
     ):
         if kind != "kron":
@@ -53,7 +55,7 @@ class HeadConfig(ketops.SpecProps):
         spec = ketops.KronSpec(
             in_dim=embed_dim, out_dim=vocab_size, order=order, rank=rank,
             q_dims=q_dims, t_dims=t_dims, use_layernorm=False, dtype=dtype,
-            use_kernel=use_kernel).validate()
+            quant=quant, use_kernel=use_kernel).validate()
         object.__setattr__(self, "vocab_size", vocab_size)
         object.__setattr__(self, "embed_dim", embed_dim)
         object.__setattr__(self, "kind", kind)
@@ -67,6 +69,11 @@ def init_head(gen: torch.Generator, cfg: HeadConfig, device) -> dict:
 
 def head_num_params(cfg: HeadConfig) -> int:
     return ketops.num_params(cfg.spec)
+
+
+def head_num_bytes(cfg: HeadConfig) -> int:
+    """Stored bytes, quant-aware (payloads at the quant width + scales)."""
+    return ketops.num_bytes(cfg.spec)
 
 
 def kron_head_logits(cfg: HeadConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -87,8 +94,11 @@ def head_ce_loss(cfg: HeadConfig, params: dict, h: torch.Tensor, labels: torch.T
     at or past ``vocab_size`` are masked. On the kernel route (CUDA tensors,
     ``use_kernel`` not False) the fused CE kernels run forward and backward;
     otherwise the vocab-tiled scan with a checkpointed body, which autograd
-    differentiates by recomputing each tile's logits.
+    differentiates by recomputing each tile's logits. A quantized head
+    (serving eval) is dequantized up front: its stacks are a few MB.
     """
+    if Q.is_quantized(params["factors"][0]):
+        params = {"factors": [Q.as_f32(f) for f in params["factors"]]}
     x = h.reshape(-1, h.shape[-1]).float()
     y = labels.reshape(-1)
     if kernel_route(cfg.use_kernel, x):

@@ -2,10 +2,11 @@
 // operators.
 //
 // Replaces: src/repro/kernels/kron_gather/kron_gather.py::_fwd_kernel (the
-// forward legs without and with LN statistics, not quantized), reached
-// through _gather_call / kron_gather_pallas and kron_gather_fwd_pallas, and
-// ::_bwd_kernel, reached through kron_gather_bwd_pallas (the backward kernel
-// is described below the forward one).
+// forward legs without and with LN statistics, reached through _gather_call
+// / kron_gather_pallas and kron_gather_fwd_pallas, and the quantized=True
+// leg, reached through ops.kron_gather_quant -> kron_gather_pallas with
+// scales), and ::_bwd_kernel, reached through kron_gather_bwd_pallas (the
+// backward kernel is described below the forward one).
 //
 // Computes, per id n:  (d1, d2) = mixed-radix digits of ids[n] over (t1, t2);
 //   a_k = F1[k, :, d1] (q1),  b_k = F2[k, :, d2] (q2)  for each rank k;
@@ -44,7 +45,18 @@
 //    taken, stats[n, 0, k] = mean_k and stats[n, 1, k] = rstd_k (the
 //    (N, 2*nodes, rank) layout of the Pallas kernel with one node); the
 //    serving leg passes no stats pointer and writes none.
+//
+// The quantized leg (serving, w2k_kron_gather2_quant) is the same kernel
+// instantiated for int8 or fp8 e4m3 payloads with fp32 per-rank scales
+// (core/quant's wire format): each factor element is dequantized as it is
+// loaded, float(q) * scale[k], before the LN moments are taken (LN with eps
+// is not scale-invariant, so the scale must come first, as _factors_2d does
+// it). The payloads stream at one byte per element: the qwen3-1.7b stacks
+// are 1.2 MB instead of 4.8 MB, and a decode step reads rank*(q1+q2) bytes
+// of columns per id. Still bound by the launch and the load latency, as the
+// fp32 leg is. The fp32 instantiation is the code of the fp32 legs.
 
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,17 +64,34 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// dst[e] = f[e * t + d] for e < n (a strided column of a factor stack):
-// eight loads per thread are issued before any store, so they are in flight
-// together instead of one memory round trip each
-__device__ __forceinline__ void gather_column(const float* __restrict__ f, int n, int t,
-                                              int d, float* dst) {
+// element idx of a factor stack as fp32: an fp32 stack as it is; an int8 /
+// fp8 payload times the scale of its rank slice k
+template <typename T>
+__device__ __forceinline__ float load_elem(const T* __restrict__ f, size_t idx,
+                                           const float* __restrict__ scale, int k) {
+  return static_cast<float>(f[idx]) * scale[k];
+}
+
+template <>
+__device__ __forceinline__ float load_elem<float>(const float* __restrict__ f, size_t idx,
+                                                  const float* __restrict__, int) {
+  return f[idx];
+}
+
+// dst[e] = F[e * t + d] for e < n (a strided column of a factor stack of
+// rank slices of q rows, dequantized by load_elem): eight loads per thread
+// are issued before any store, so they are in flight together instead of
+// one memory round trip each
+template <typename T>
+__device__ __forceinline__ void gather_column(const T* __restrict__ f, int n, int t, int d,
+                                              const float* __restrict__ scale, int q,
+                                              float* dst) {
   for (int e0 = 0; e0 < n; e0 += 8 * kThreads) {
     float v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int e = e0 + u * kThreads + threadIdx.x;
-      v[u] = e < n ? f[static_cast<size_t>(e) * t + d] : 0.f;
+      v[u] = e < n ? load_elem(f, static_cast<size_t>(e) * t + d, scale, e / q) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
@@ -72,9 +101,12 @@ __device__ __forceinline__ void gather_column(const float* __restrict__ f, int n
   }
 }
 
+// s1, s2: the payloads' (rank,) scales; unused (nullptr) for fp32 stacks
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 kron_gather2_kernel(const int32_t* __restrict__ ids,
-                    const float* __restrict__ f1, const float* __restrict__ f2,
+                    const T* __restrict__ f1, const T* __restrict__ f2,
+                    const float* __restrict__ s1, const float* __restrict__ s2,
                     int rank, int q1, int t1, int q2, int t2, int use_ln, float eps,
                     float* __restrict__ out, int out_cols, float* __restrict__ stats) {
   extern __shared__ float smem[];
@@ -96,8 +128,8 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
   const int d2 = id - d1 * t2;
 
   // F_j[k, i, d] lives at (k*q_j + i)*t_j + d
-  gather_column(f1, rank * q1, t1, d1, a);
-  gather_column(f2, rank * q2, t2, d2, b);
+  gather_column(f1, rank * q1, t1, d1, s1, q1, a);
+  gather_column(f2, rank * q2, t2, d2, s2, q2, b);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
@@ -377,10 +409,35 @@ kron_gather2_bwd_cols_kernel(const int32_t* __restrict__ ids, int n_ids,
   }
 }
 
+long long gather_smem_bytes(int rank, int q1, int q2) {
+  return static_cast<long long>(rank) * (q1 + q2 + 1) * static_cast<long long>(sizeof(float));
+}
+
+template <typename T>
+int launch_gather(const int32_t* ids, int n_ids, const T* f1, const T* f2, const float* s1,
+                  const float* s2, int rank, int q1, int t1, int q2, int t2, int use_ln,
+                  float eps, float* out, int out_cols, float* stats, cudaStream_t st) {
+  if (n_ids <= 0) return 0;
+  const size_t smem = static_cast<size_t>(gather_smem_bytes(rank, q1, q2));
+  // raise the dynamic shared-memory cap (one per payload type) only when a
+  // shape needs more than any earlier launch
+  static size_t smem_cap = 48 * 1024;
+  if (smem > smem_cap) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kron_gather2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_cap = smem;
+  }
+  kron_gather2_kernel<T><<<n_ids, kThreads, smem, st>>>(
+      ids, f1, f2, s1, s2, rank, q1, t1, q2, t2, use_ln, eps, out, out_cols, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" long long w2k_kron_gather2_smem_bytes(int rank, int q1, int q2) {
-  return static_cast<long long>(rank) * (q1 + q2 + 1) * static_cast<long long>(sizeof(float));
+  return gather_smem_bytes(rank, q1, q2);
 }
 
 // stats: nullptr for the serving leg, else (n_ids, 2, rank) fp32 (LN on)
@@ -388,21 +445,29 @@ extern "C" int w2k_kron_gather2(const int32_t* ids, int n_ids, const float* f1,
                                 const float* f2, int rank, int q1, int t1, int q2,
                                 int t2, int use_ln, float eps, float* out,
                                 int out_cols, float* stats, void* stream) {
-  if (n_ids <= 0) return 0;
-  const size_t smem = static_cast<size_t>(w2k_kron_gather2_smem_bytes(rank, q1, q2));
-  // raise the dynamic shared-memory cap only when a shape needs more than
-  // any earlier launch
-  static size_t smem_cap = 48 * 1024;
-  if (smem > smem_cap) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kron_gather2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_cap = smem;
-  }
-  kron_gather2_kernel<<<n_ids, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ids, f1, f2, rank, q1, t1, q2, t2, use_ln, eps, out, out_cols, stats);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gather<float>(ids, n_ids, f1, f2, nullptr, nullptr, rank, q1, t1, q2, t2,
+                              use_ln, eps, out, out_cols, stats,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The quantized serving leg: f1, f2 are (rank, q_j, t_j) payloads of
+// `payload` kind (0: int8, 1: fp8 e4m3), s1, s2 their (rank,) fp32 scales;
+// no stats
+extern "C" int w2k_kron_gather2_quant(const int32_t* ids, int n_ids, const void* f1,
+                                      const void* f2, const float* s1, const float* s2,
+                                      int payload, int rank, int q1, int t1, int q2, int t2,
+                                      int use_ln, float eps, float* out, int out_cols,
+                                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (payload == 0)
+    return launch_gather(ids, n_ids, static_cast<const int8_t*>(f1),
+                         static_cast<const int8_t*>(f2), s1, s2, rank, q1, t1, q2, t2,
+                         use_ln, eps, out, out_cols, nullptr, st);
+  if (payload == 1)
+    return launch_gather(ids, n_ids, static_cast<const __nv_fp8_e4m3*>(f1),
+                         static_cast<const __nv_fp8_e4m3*>(f2), s1, s2, rank, q1, t1, q2,
+                         t2, use_ln, eps, out, out_cols, nullptr, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" long long w2k_kron_gather2_bwd_smem_bytes(int rank, int q1, int q2) {

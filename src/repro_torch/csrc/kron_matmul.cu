@@ -1,9 +1,10 @@
 // Rank-folded Kronecker chain y = x · (Σ_k F1_k ⊗ F2_k) for Hopper (sm_90a),
 // order-2 operators, fp32, forward and backward.
 //
-// Replaces: src/repro/kernels/kron_matmul/kron_matmul.py::_fwd_kernel (not
-// quantized), reached through kron_matmul_pallas, and ::_bwd_kernel, reached
-// through kron_matmul_bwd_pallas. The forward is the kron vocab head
+// Replaces: src/repro/kernels/kron_matmul/kron_matmul.py::_fwd_kernel (fp32,
+// reached through kron_matmul_pallas; and its quantized=True leg, reached
+// through ops.kron_matmul_quant -> kron_matmul_pallas with scales), and
+// ::_bwd_kernel, reached through kron_matmul_bwd_pallas. The forward is the kron vocab head
 // (core/logits.kron_head_logits) and every ket linear (linear_kind="ket":
 // the attention q/k/v/o and FFN wi/wg/wo projections); the backward trains
 // the ket linears. The backward is described above w2k_kron_matmul2_bwd.
@@ -41,10 +42,29 @@
 //    register tile per thread, and the next K step's global loads issued
 //    before the current step's FMAs. Rows map back to (b, a) in the store,
 //    which drops columns at or past out_dim.
+//
+// The quantized forward (serving, w2k_kron_matmul2_quant) runs the same two
+// kernels instantiated for int8 or fp8 e4m3 payloads with fp32 per-rank
+// scales (core/quant's wire format). Both scales depend on the rank k only,
+// so they fold into z: stage 1 multiplies with the raw F1 payload values
+// and writes z[., k*q2 + j] times s1[k] * s2[k], and stage 2 multiplies z
+// with the raw F2 values: y = sum_{k,j} (s1[k] s2[k] sum_i x q1) q2, the
+// chain on the dequantized factors, with no per-element scale lookup. A
+// payload row of F2 at t2 = 390 is 390 bytes, so rows are only 2-byte
+// aligned: payload elements are loaded one at a time, kept raw in registers
+// until they are stored (stage 2 stores after the FMAs of the step before,
+// so the loads stay in flight) and converted to fp32 there; the shared-memory
+// tiles stay fp32, so the float4 shared-memory reads are the fp32 leg's. The
+// arithmetic is the fp32 leg's and the factor bytes fall 4x (1.2 MB at the
+// head), so it stays bound by the fp32 operations. The fp32 instantiations
+// are the fp32 legs' code.
 
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -54,6 +74,17 @@ constexpr int kF1Floats = 8192;  // stage 1: shared-memory budget of an F1 slab
 constexpr int kBM = 64;          // stage 2: output rows per block
 constexpr int kBN = 64;          // stage 2: output columns per block
 constexpr int kBK = 16;          // stage 2: K depth per step
+
+// a factor element as fp32, without its scale (which folds into z)
+template <typename T>
+__device__ __forceinline__ float to_float(T v) {
+  return static_cast<float>(v);
+}
+
+template <>
+__device__ __forceinline__ float to_float<float>(float v) {
+  return v;
+}
 
 // ranks of F1 per stage-1 block: one thread per (rank, j) pair and at most
 // kF1Floats of F1 in shared memory
@@ -71,8 +102,12 @@ __host__ __device__ inline long long stage1_smem_bytes(int rank, int q1, int q2)
          static_cast<long long>(sizeof(float));
 }
 
+// s1, s2: the payloads' (rank,) scales, folded into z; unused (nullptr) for
+// fp32 factors
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-kron_stage1_kernel(const float* __restrict__ x, const float* __restrict__ f1, int rank,
+kron_stage1_kernel(const float* __restrict__ x, const T* __restrict__ f1,
+                   const float* __restrict__ s1, const float* __restrict__ s2, int rank,
                    int q1, int t1, int q2, float* __restrict__ z) {
   extern __shared__ float4 smem4[];
   const int K = rank * q2;
@@ -99,7 +134,7 @@ kron_stage1_kernel(const float* __restrict__ x, const float* __restrict__ f1, in
       const int a = e % kTA;
       const int ki = e / kTA;  // kk * q1 + i
       v[u] = (e < n && a < na)
-                 ? f1[(static_cast<size_t>(k0) * q1 + ki) * t1 + a0 + a] : 0.f;
+                 ? to_float(f1[(static_cast<size_t>(k0) * q1 + ki) * t1 + a0 + a]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
@@ -129,16 +164,21 @@ kron_stage1_kernel(const float* __restrict__ x, const float* __restrict__ f1, in
       }
     }
     float* zr = z + (static_cast<size_t>(b) * t1 + a0) * K + k0 * q2 + kj;
+    constexpr bool kScaled = !std::is_same<T, float>::value;
+    float zs = 1.f;
+    if constexpr (kScaled) zs = s1[k0 + kk] * s2[k0 + kk];
 #pragma unroll
     for (int a = 0; a < kTA; ++a)
-      if (a < na) zr[static_cast<size_t>(a) * K] = acc[a];
+      if (a < na) zr[static_cast<size_t>(a) * K] = kScaled ? acc[a] * zs : acc[a];
   }
 }
 
 // y[(row / t1), (row % t1) * t2 + c] = sum_k z[row][k] * f2[k][c], rows < M
+// (for a payload f2, its scales are already in z)
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-kron_stage2_kernel(const float* __restrict__ z, const float* __restrict__ f2, int M,
-                   int K, int N, int t1, float* __restrict__ out, int out_dim) {
+kron_stage2_kernel(const float* __restrict__ z, const T* __restrict__ f2, int M, int K,
+                   int N, int t1, float* __restrict__ out, int out_dim) {
   __shared__ __align__(16) float As[2][kBK][kBM];  // A tile, transposed
   __shared__ __align__(16) float Bs[2][kBK][kBN];
   const int tid = threadIdx.x;
@@ -147,10 +187,13 @@ kron_stage2_kernel(const float* __restrict__ z, const float* __restrict__ f2, in
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
 
-  // each thread loads 4 A values (row lr, k lk..lk+3) and 4 B values
+  // each thread loads 4 A values (row lr, k lk..lk+3) and 4 B values; the
+  // B values stay raw in registers until the store after the current
+  // step's FMAs, so the loads stay in flight while it computes
   const int lr = tid / 4, lk = (tid % 4) * 4;    // A: 64 rows x 16 k
   const int bk = tid / 16, bc = (tid % 16) * 4;  // B: 16 k x 64 columns
-  float ra[4], rb[4];
+  float ra[4];
+  T rb[4];
   auto load = [&](int k0) {
     const int row = m0 + lr;
 #pragma unroll
@@ -162,13 +205,14 @@ kron_stage2_kernel(const float* __restrict__ z, const float* __restrict__ f2, in
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int c = n0 + bc + u;
-      rb[u] = (kb < K && c < N) ? f2[static_cast<size_t>(kb) * N + c] : 0.f;
+      rb[u] = (kb < K && c < N) ? f2[static_cast<size_t>(kb) * N + c] : T();
     }
   };
   auto store = [&](int buf) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) As[buf][lk + u][lr] = ra[u];
-    *reinterpret_cast<float4*>(&Bs[buf][bk][bc]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+    *reinterpret_cast<float4*>(&Bs[buf][bk][bc]) = make_float4(
+        to_float(rb[0]), to_float(rb[1]), to_float(rb[2]), to_float(rb[3]));
   };
 
   float acc[4][4];
@@ -461,23 +505,39 @@ __host__ inline BwdPlan plan_bwd(int batch, int rank, int q1, int t1, int q2, in
   return pl;
 }
 
-int launch_stage1(const float* x, int batch, const float* f1, int rank, int q1, int t1,
-                  int q2, float* z, cudaStream_t st) {
+template <typename T>
+int launch_stage1(const float* x, int batch, const T* f1, const float* s1, const float* s2,
+                  int rank, int q1, int t1, int q2, float* z, cudaStream_t st) {
   const size_t smem = static_cast<size_t>(stage1_smem_bytes(rank, q1, q2));
-  // raise the dynamic shared-memory cap only when a shape needs more than
-  // any earlier launch
+  // raise the dynamic shared-memory cap (one per payload type) only when a
+  // shape needs more than any earlier launch
   static size_t smem_cap = 48 * 1024;
   if (smem > smem_cap) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kron_stage1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kron_stage1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_cap = smem;
   }
   const int groups = (rank + f1_ranks_per_block(rank, q1, q2) - 1) /
                      f1_ranks_per_block(rank, q1, q2);
-  kron_stage1_kernel<<<dim3(batch, (t1 + kTA - 1) / kTA, groups), kThreads, smem, st>>>(
-      x, f1, rank, q1, t1, q2, z);
+  kron_stage1_kernel<T><<<dim3(batch, (t1 + kTA - 1) / kTA, groups), kThreads, smem, st>>>(
+      x, f1, s1, s2, rank, q1, t1, q2, z);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the whole forward: stage 1 into the z scratch, then stage 2
+template <typename T>
+int launch_forward(const float* x, int batch, const T* f1, const T* f2, const float* s1,
+                   const float* s2, int rank, int q1, int t1, int q2, int t2, float* z,
+                   float* out, int out_dim, cudaStream_t st) {
+  if (batch <= 0) return 0;
+  int rc = launch_stage1(x, batch, f1, s1, s2, rank, q1, t1, q2, z, st);
+  if (rc) return rc;
+  const int M = batch * t1;
+  const int K = rank * q2;
+  kron_stage2_kernel<T><<<dim3((t2 + kBN - 1) / kBN, (M + kBM - 1) / kBM), kThreads, 0, st>>>(
+      z, f2, M, K, t2, t1, out, out_dim);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -495,15 +555,26 @@ extern "C" long long w2k_kron_matmul2_scratch_floats(int batch, int rank, int t1
 extern "C" int w2k_kron_matmul2(const float* x, int batch, const float* f1,
                                 const float* f2, int rank, int q1, int t1, int q2,
                                 int t2, float* z, float* out, int out_dim, void* stream) {
-  if (batch <= 0) return 0;
+  return launch_forward<float>(x, batch, f1, f2, nullptr, nullptr, rank, q1, t1, q2, t2, z,
+                               out, out_dim, static_cast<cudaStream_t>(stream));
+}
+
+// The quantized forward: f1, f2 are (rank, q_j, t_j) payloads of `payload`
+// kind (0: int8, 1: fp8 e4m3), s1, s2 their (rank,) fp32 scales; z as above
+extern "C" int w2k_kron_matmul2_quant(const float* x, int batch, const void* f1,
+                                      const void* f2, const float* s1, const float* s2,
+                                      int payload, int rank, int q1, int t1, int q2, int t2,
+                                      float* z, float* out, int out_dim, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = launch_stage1(x, batch, f1, rank, q1, t1, q2, z, st);
-  if (rc) return rc;
-  const int M = batch * t1;
-  const int K = rank * q2;
-  kron_stage2_kernel<<<dim3((t2 + kBN - 1) / kBN, (M + kBM - 1) / kBM), kThreads, 0, st>>>(
-      z, f2, M, K, t2, t1, out, out_dim);
-  return static_cast<int>(cudaGetLastError());
+  if (payload == 0)
+    return launch_forward(x, batch, static_cast<const int8_t*>(f1),
+                          static_cast<const int8_t*>(f2), s1, s2, rank, q1, t1, q2, t2, z,
+                          out, out_dim, st);
+  if (payload == 1)
+    return launch_forward(x, batch, static_cast<const __nv_fp8_e4m3*>(f1),
+                          static_cast<const __nv_fp8_e4m3*>(f2), s1, s2, rank, q1, t1, q2,
+                          t2, z, out, out_dim, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" long long w2k_kron_matmul2_bwd_scratch_floats(int batch, int rank, int q1, int t1,
@@ -529,7 +600,7 @@ extern "C" int w2k_kron_matmul2_bwd(const float* x, int batch, const float* g,
   float* p2 = dz + pl.z;
   float* p1 = p2 + pl.p2;
 
-  int rc = launch_stage1(x, batch, f1, rank, q1, t1, q2, z, st);
+  int rc = launch_stage1<float>(x, batch, f1, nullptr, nullptr, rank, q1, t1, q2, z, st);
   if (rc) return rc;
 
   Gemm d{};  // dz[m][n] = sum_c g[m][c] * F2[n][c], m = b*t1 + a, n = k*q2 + j

@@ -10,7 +10,9 @@ holds the CUDA kernels against them:
     LN statistics the backward needs (the ``with_stats`` leg);
   * :func:`kron_gather_bwd_ref` — the dedicated backward: re-gathered
     leaves, the tree replayed with the saved statistics, the separable root
-    split, and ``index_add_`` in place of the TPU's one-hot scatter.
+    split, and ``index_add_`` in place of the TPU's one-hot scatter;
+  * :func:`kron_gather_quant_ref` — the lookup over int8 / fp8 payloads
+    with per-rank scales: dequantized, then :func:`kron_gather_ref`.
 
 They run elementwise products, small einsums and means, so TF32 settings do
 not touch them in fp32.
@@ -41,6 +43,20 @@ def kron_gather_ref(
     vs = [f[:, :, d].permute(2, 0, 1) for f, d in zip(factors, digits)]  # (N, r, q_j)
     v = K.kron_vectors_tree(vs, use_layernorm=use_layernorm)  # (N, r, prod q)
     return v.sum(dim=-2)[..., :embed_dim]
+
+
+def kron_gather_quant_ref(
+    factors_q: Sequence[torch.Tensor],  # [(rank, q_j, t_j)] int8 / fp8 payloads
+    scales: Sequence[torch.Tensor],  # [(rank, 1, 1)] fp32
+    ids: torch.Tensor,  # (N,) int
+    *,
+    embed_dim: int,
+    use_layernorm: bool = True,
+) -> torch.Tensor:
+    """ids -> (N, embed_dim) fp32 over quantized factor stacks: each stack
+    dequantized as ``q.float() * scale``, then :func:`kron_gather_ref`."""
+    factors = [q.float() * s for q, s in zip(factors_q, scales)]
+    return kron_gather_ref(factors, ids, embed_dim=embed_dim, use_layernorm=use_layernorm)
 
 
 def _leaves(factors: Sequence[torch.Tensor], ids: torch.Tensor):

@@ -5,7 +5,11 @@
 the tensor (``kernels.kernel_route``): on a CUDA tensor its forward and
 backward launch the CUDA kernels, on a CPU tensor they run the plain
 versions :func:`kron_matmul_ref` and :func:`kron_matmul_bwd_ref`.
-``launches`` counts kernel launches per leg and nothing else.
+:func:`kron_matmul_quant` is the forward-only chain over int8 / fp8
+payloads with per-rank scales (core/quant), outside the autograd Function
+and routed the same way: the dequant-fused CUDA leg, or
+:func:`kron_matmul_quant_ref`. ``launches`` counts kernel launches per leg
+and nothing else.
 """
 
 from __future__ import annotations
@@ -17,13 +21,16 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build, kernel_route
-from repro_torch.kernels.kron_matmul.ref import kron_matmul_bwd_ref, kron_matmul_ref
+from repro_torch.kernels import PAYLOAD_KINDS, build, kernel_route, quant_scales, refuse_grad
+from repro_torch.kernels.kron_matmul.ref import (kron_matmul_bwd_ref, kron_matmul_quant_ref,
+                                                 kron_matmul_ref)
 
 __all__ = ["kron_matmul", "kron_matmul_cuda", "kron_matmul_bwd_cuda", "KronMatmul",
-           "kron_matmul_ref", "kron_matmul_bwd_ref", "check_inputs", "launches"]
+           "kron_matmul_quant", "kron_matmul_quant_cuda", "kron_matmul_ref",
+           "kron_matmul_bwd_ref", "kron_matmul_quant_ref", "check_inputs",
+           "check_quant_inputs", "launches"]
 
-launches = {"kron_matmul_fwd": 0, "kron_matmul_bwd": 0}
+launches = {"kron_matmul_fwd": 0, "kron_matmul_bwd": 0, "kron_matmul_fwd_quant": 0}
 _SMEM_LIMIT = 227 * 1024
 _lib: Optional[ctypes.CDLL] = None
 
@@ -35,6 +42,9 @@ def _load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.w2k_kron_matmul2.argtypes = [p, i, p, p, i, i, i, i, i, p, p, i, p]
         lib.w2k_kron_matmul2.restype = i
+        lib.w2k_kron_matmul2_quant.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p, p,
+                                               i, p]
+        lib.w2k_kron_matmul2_quant.restype = i
         lib.w2k_kron_matmul2_smem_bytes.argtypes = [i, i, i]
         lib.w2k_kron_matmul2_smem_bytes.restype = ctypes.c_longlong
         lib.w2k_kron_matmul2_scratch_floats.argtypes = [i, i, i, i]
@@ -50,10 +60,11 @@ def _load() -> ctypes.CDLL:
 
 
 def check_inputs(factors: Sequence[torch.Tensor], x: torch.Tensor,
-                 out_dim: int) -> None:
-    """What the CUDA kernel takes: order-2 fp32 contiguous ``(rank, q_j,
-    t_j)`` stacks of one rank, a 2-D fp32 ``x`` with ``d_in <= prod q``,
-    everything on one device, ``out_dim <= prod t``; raises otherwise."""
+                 out_dim: int, dtypes=(torch.float32,)) -> None:
+    """What the CUDA kernels take: order-2 contiguous ``(rank, q_j, t_j)``
+    stacks of one rank in one of ``dtypes`` (fp32 for every leg but the
+    quantized one), a 2-D fp32 ``x`` with ``d_in <= prod q``, everything
+    on one device, ``out_dim <= prod t``; raises otherwise."""
     if len(factors) != 2:
         raise NotImplementedError(
             f"the kron_matmul CUDA kernel takes order-2 operators, got order "
@@ -61,8 +72,9 @@ def check_inputs(factors: Sequence[torch.Tensor], x: torch.Tensor,
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"x must be a 2-D fp32 tensor, got {x.dtype} {tuple(x.shape)}")
     for f in factors:
-        if f.dtype != torch.float32 or f.dim() != 3 or not f.is_contiguous():
-            raise ValueError(f"factors must be contiguous 3-D fp32 tensors, got "
+        if f.dtype not in dtypes or f.dim() != 3 or not f.is_contiguous():
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise ValueError(f"factors must be contiguous 3-D {names} tensors, got "
                              f"{f.dtype} {tuple(f.shape)}")
         if f.device != x.device:
             raise ValueError(f"factor on {f.device}, x on {x.device}")
@@ -74,6 +86,16 @@ def check_inputs(factors: Sequence[torch.Tensor], x: torch.Tensor,
         raise ValueError(f"x has {x.shape[1]} features > prod q = {P}")
     if not 0 < out_dim <= T:
         raise ValueError(f"out_dim {out_dim} outside (0, prod t = {T}]")
+
+
+def check_quant_inputs(factors_q: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
+                       x: torch.Tensor, out_dim: int) -> tuple[int, list[torch.Tensor]]:
+    """What the quantized forward takes: :func:`check_inputs` with int8 or
+    fp8 e4m3 payloads (one kind), and fp32 ``(rank, 1, 1)`` (or ``(1, 1,
+    1)``) scales on the same device. Returns the payload code and the
+    scales as contiguous ``(rank,)`` tensors."""
+    check_inputs(factors_q, x, out_dim, dtypes=tuple(PAYLOAD_KINDS))
+    return quant_scales(factors_q, scales)
 
 
 def _stage1_smem_check(lib, rank: int, q1: int, q2: int) -> None:
@@ -123,6 +145,37 @@ def kron_matmul_cuda(factors: Sequence[torch.Tensor], x: torch.Tensor,
                                   out.data_ptr(), out_dim, stream)
     _raise_on(lib, rc, "kron_matmul")
     launches["kron_matmul_fwd"] += 1
+    return out
+
+
+def kron_matmul_quant_cuda(factors_q: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
+                           x: torch.Tensor, out_dim: int) -> torch.Tensor:
+    """Launch the dequant-fused CUDA forward over int8 / fp8 payloads:
+    x (B, d_in) fp32 -> (B, out_dim) fp32, the two stages back to back
+    through a (B·t1, r·q2) fp32 scratch allocated here."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kron_matmul_quant_cuda needs CUDA tensors, got {x.device}")
+    kind, (s1, s2) = check_quant_inputs(factors_q, scales, x, out_dim)
+    f1, f2 = factors_q
+    rank, q1, t1 = f1.shape
+    _, q2, t2 = f2.shape
+    lib = _load()
+    _stage1_smem_check(lib, rank, q1, q2)
+    x = _pad_cols(x, q1 * q2)  # zero rows of the operator's padding
+    B = x.shape[0]
+    out = torch.empty((B, out_dim), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return out
+    scratch = torch.empty(lib.w2k_kron_matmul2_scratch_floats(B, rank, t1, q2),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.w2k_kron_matmul2_quant(x.data_ptr(), B, f1.data_ptr(), f2.data_ptr(),
+                                        s1.data_ptr(), s2.data_ptr(), kind, rank, q1, t1,
+                                        q2, t2, scratch.data_ptr(), out.data_ptr(), out_dim,
+                                        stream)
+    _raise_on(lib, rc, "kron_matmul_quant")
+    launches["kron_matmul_fwd_quant"] += 1
     return out
 
 
@@ -202,3 +255,19 @@ def kron_matmul(factors: Sequence[torch.Tensor], x: torch.Tensor, out_dim: int,
     the CUDA kernels for CUDA x, the plain versions for CPU x or
     ``use_kernel=False``."""
     return KronMatmul.apply(x, out_dim, kernel_route(use_kernel, x), *factors)
+
+
+def kron_matmul_quant(factors_q: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
+                      x: torch.Tensor, out_dim: int,
+                      use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """x (B, d_in) -> (B, out_dim) in x's dtype (every sum in fp32) over
+    int8 / fp8 payloads ``(rank, q_j, t_j)`` with per-rank fp32 scales
+    ``(rank, 1, 1)``: the dequant-fused CUDA leg for CUDA x,
+    :func:`kron_matmul_quant_ref` for CPU x or ``use_kernel=False``.
+    Forward-only: raises when autograd would need a gradient through it."""
+    refuse_grad("kron_matmul_quant", x, *factors_q, *scales)
+    if kernel_route(use_kernel, x):
+        out = kron_matmul_quant_cuda(factors_q, scales, x.float(), out_dim)
+    else:
+        out = kron_matmul_quant_ref(factors_q, scales, x, out_dim)
+    return out.to(x.dtype)

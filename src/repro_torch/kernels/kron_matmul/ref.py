@@ -2,7 +2,10 @@
 (port of ``repro.kernels.kron_matmul``: the forward, and
 ``kron_matmul_bwd_host`` over the whole ``t1`` range).
 
-The CPU route and the CPU tests run it; on the card ``chip_smoke.py`` holds
+:func:`kron_matmul_quant_ref` is the forward over int8 / fp8 payloads with
+per-rank scales: the chain on the dequantized factors.
+
+The CPU route and the CPU tests run them; on the card ``chip_smoke.py`` holds
 the CUDA kernels against it. Its contractions are fp32 matmuls, so on the
 card it needs ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's
 default, which ``chip_smoke.py`` sets explicitly).
@@ -31,6 +34,17 @@ def kron_matmul_ref(
     if P > x2.shape[-1]:
         x2 = F.pad(x2, (0, P - x2.shape[-1]))
     return C.chain_fused_forward(x2, factors)[:, :out_dim]
+
+
+def kron_matmul_quant_ref(
+    factors_q: Sequence[torch.Tensor],  # [(rank, q_j, t_j)] int8 / fp8 payloads
+    scales: Sequence[torch.Tensor],  # [(rank, 1, 1)] fp32
+    x: torch.Tensor,  # (B, d_in)
+    out_dim: int,
+) -> torch.Tensor:
+    """:func:`kron_matmul_ref` on the factors dequantized as
+    ``q.float() * scale``."""
+    return kron_matmul_ref([q.float() * s for q, s in zip(factors_q, scales)], x, out_dim)
 
 
 def kron_matmul_bwd_ref(

@@ -5,15 +5,18 @@ Raw-step mode (default) times greedy decode steps over a dense or paged
 one ``[serve] …`` line. ``--engine`` drives the continuous-batching
 ``ServingEngine`` (chunked prefill, paged pools, page-budget scheduler)
 and prints its ``[serve:engine] …`` stats line. Seeded random parameters;
-the whole config runs in fp32, as the JAX launcher runs it.
+the whole config runs in fp32, as the JAX launcher runs it. ``--quant
+int8|fp8`` serves the ket factor stacks from the low-bit wire format
+(core/quant): the engine calibrates them at construction, raw-step mode
+quantizes after ``init_params``; either prints the stored bytes of the
+ket operators beside their fp32 bytes.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
-        --batch 8 --new-tokens 32 [--paged] [--smoke] [--device cpu]
+        --batch 8 --new-tokens 32 [--paged] [--smoke] [--device cpu] [--quant int8]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \
         --engine --device cpu --prefix-cache --shared-prefix-len 16
 
-``--quant`` other than ``none`` and a ``--mesh`` other than ``1x1`` are not
-ported yet and raise.
+A ``--mesh`` other than ``1x1`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -31,6 +34,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _ket_bytes_line(params, mode: str) -> str:
+    """The stored bytes of every ket factor stack in ``params`` under
+    ``mode`` beside their fp32 bytes (payloads plus fp32 scales)."""
+    from repro_torch.core import quant as Q
+
+    shapes = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            if isinstance(tree.get("factors"), list):
+                shapes.extend(tuple((f["q"] if Q.is_quantized(f) else f).shape)
+                              for f in tree["factors"])
+                return
+            for v in tree.values():
+                walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+
+    walk(params)
+    return (f"[serve] ket operators ({len(shapes)} factor stacks): "
+            f"{Q.storage_bytes(shapes, mode):,} B stored as {mode}, "
+            f"{Q.storage_bytes(shapes, 'none'):,} B in fp32")
+
+
 def _run_engine(cfg, args, device) -> int:
     from repro_torch.models import model as MD
     from repro_torch.serve.engine import Request, ServingEngine
@@ -39,11 +67,13 @@ def _run_engine(cfg, args, device) -> int:
     params = MD.init_params(cfg, seed=args.seed, device=device)
     eng = ServingEngine(
         cfg, params, batch_slots=args.batch, max_len=args.max_len,
-        cache_mode="dense" if args.dense else "paged",
+        quant=args.quant, cache_mode="dense" if args.dense else "paged",
         prefill_chunk=args.prefill_chunk or None,
         prefill_mode=args.prefill_mode, admission=args.admission,
         num_pages=args.num_pages or None, prefix_cache=args.prefix_cache,
         handle_signals=True, device=device)  # SIGTERM drains instead of dropping
+    if args.quant != "none":
+        print(_ket_bytes_line(eng.params, args.quant))
     if args.shared_prefix_len:
         if args.shared_prefix_len > args.prompt_len:
             raise SystemExit("--shared-prefix-len exceeds --prompt-len")
@@ -92,7 +122,8 @@ def main(argv=None) -> int:
     p.add_argument("--new-tokens", type=int, default=32)
     p.add_argument("--max-len", type=int, default=128)
     p.add_argument("--mesh", default="1x1")
-    p.add_argument("--quant", default="none", choices=["none", "int8", "fp8"])
+    p.add_argument("--quant", default="none", choices=["none", "int8", "fp8"],
+                   help="post-training ket-factor quantization (wire format)")
     p.add_argument("--paged", action="store_true",
                    help="raw-step mode: paged KV pools instead of dense")
     p.add_argument("--dense", action="store_true",
@@ -123,10 +154,8 @@ def main(argv=None) -> int:
                    help="device to serve on; 'cpu' runs the plain versions")
     args = p.parse_args(argv)
 
-    for flag, asked in (("--quant", args.quant != "none"),
-                        ("--mesh", args.mesh != "1x1")):
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    if args.mesh != "1x1":
+        raise NotImplementedError("--mesh is not ported yet")
     device = resolve_device(args.device)
     cfg = (get_smoke if args.smoke else get_config)(args.arch, dtype=torch.float32)
     if args.engine:
@@ -136,6 +165,10 @@ def main(argv=None) -> int:
                          "takes one position)")
 
     params = MD.init_params(cfg, seed=args.seed, device=device)
+    if args.quant != "none":
+        from repro_torch.serve.engine import quantize_params
+        params = quantize_params(params, args.quant)
+        print(_ket_bytes_line(params, args.quant))
     cache = MD.init_cache(cfg, args.batch, args.max_len, paged=args.paged, device=device)
     if args.paged:
         identity_ptab(cache, args.batch)

@@ -94,7 +94,8 @@ def init_attention(gen: torch.Generator, cfg, device="cuda") -> dict:
     dtype = cfg.param_dtype
     d, H, KVH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if cfg.linear_kind == "ket":
-        kw = dict(kind="ket", order=cfg.linear_order, rank=cfg.linear_rank)
+        kw = dict(kind="ket", order=cfg.linear_order, rank=cfg.linear_rank,
+                  quant=cfg.quant)
         p = {
             "wq": linear_init(gen, d, H * Dh, dtype, device, **kw),
             "wk": linear_init(gen, d, KVH * Dh, dtype, device, **kw),

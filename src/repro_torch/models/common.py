@@ -48,17 +48,19 @@ def is_ket_param(p) -> bool:
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.float32,
-                device="cuda", *, kind: str = "dense", order: int = 2, rank: int = 8):
+                device="cuda", *, kind: str = "dense", order: int = 2, rank: int = 8,
+                quant: str = "none"):
     """A (d_in, d_out) projection: a dense tensor, or ket factor stacks with
     the JAX package's shapes and scale (``ketops.init`` of a LayerNorm-free
-    spec)."""
+    spec). ``quant`` stores the ket factors in the int8 / fp8 wire format
+    (serving only; a dense projection ignores it)."""
     if kind == "dense":
         return dense_init(gen, (d_in, d_out), dtype, fan_in=d_in, device=device)
     if kind != "ket":
         raise ValueError(f"unknown linear kind {kind!r}")
     from repro_torch.core import ketops
     spec = ketops.KronSpec(in_dim=d_in, out_dim=d_out, order=order, rank=rank,
-                           use_layernorm=False, dtype=dtype)
+                           use_layernorm=False, dtype=dtype, quant=quant)
     return ketops.init(gen, spec, device)
 
 

@@ -17,10 +17,10 @@ from repro_torch.models.common import linear_apply, linear_init
 
 def init_ffn(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
              dtype=torch.float32, device="cuda", *, kind: str = "dense",
-             order: int = 2, rank: int = 8) -> dict:
+             order: int = 2, rank: int = 8, quant: str = "none") -> dict:
     if mlp_type != "swiglu":
         raise NotImplementedError(f"mlp_type {mlp_type!r} is not ported yet")
-    kw = dict(kind=kind, order=order, rank=rank)
+    kw = dict(kind=kind, order=order, rank=rank, quant=quant)
     wi = linear_init(gen, d_model, d_ff, dtype, device, **kw)
     wg = linear_init(gen, d_model, d_ff, dtype, device, **kw)
     wo = linear_init(gen, d_ff, d_model, dtype, device, **kw)

@@ -25,7 +25,8 @@ from repro_torch.models.common import init_rmsnorm, linear_opts, rmsnorm, rope_a
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> dict:
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    lin = dict(kind=cfg.linear_kind, order=cfg.linear_order, rank=cfg.linear_rank)
+    lin = dict(kind=cfg.linear_kind, order=cfg.linear_order, rank=cfg.linear_rank,
+               quant=cfg.quant)
     return {
         "ln1": init_rmsnorm(cfg.d_model, cfg.param_dtype, device),
         "attn": A.init_attention(gen, cfg, device),

@@ -45,11 +45,16 @@ quarantine of non-finite logits (requeue once, fail on the second strike).
 ``check()`` audits the allocator, per-slot page ownership and the device
 page table against each other.
 
+``quant="int8"|"fp8"`` calibrates the parameters once at construction
+(``core/quant.quantize_params``): every ket factor stack (embedding, head,
+ket linears) is served from the wire format through the dequant-fused
+kernel legs.
+
 Not ported yet: the retry → degrade ladder of the JAX engine's model call
-and its fault-injector hooks (the durability slice), and ``quant`` other
-than ``"none"`` (the quant slice). Degrading would swap the card's kernels
-for their plain versions and hide a kernel failure, so a model call here
-runs once and a failure propagates as :class:`EngineStepError`.
+and its fault-injector hooks (the durability slice). Degrading would swap
+the card's kernels for their plain versions and hide a kernel failure, so
+a model call here runs once and a failure propagates as
+:class:`EngineStepError`.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import dequantize_params, quantize_params
 from repro_torch.fault import PreemptionHandler, StragglerWatchdog
 from repro_torch.kernels import autotune
 from repro_torch.models import model as MD
@@ -71,7 +77,8 @@ from repro_torch.serve.cache import (PAGED_KINDS, TRASH_PAGE, PageAllocator,
                                      PrefixCache, copy_page, logical_pages,
                                      pages_needed, reset_slot)
 
-__all__ = ["Request", "ServingEngine", "DrainResult", "EngineStepError"]
+__all__ = ["Request", "ServingEngine", "DrainResult", "EngineStepError",
+           "quantize_params", "dequantize_params"]
 
 
 class EngineStepError(RuntimeError):
@@ -149,10 +156,10 @@ class ServingEngine:
             raise ValueError(prefill_mode)
         if admission not in ("optimistic", "reserve"):
             raise ValueError(admission)
-        if quant != "none":
-            raise NotImplementedError(f"quant={quant!r} is not ported yet")
         self.device = resolve_device(device)
-        self.params = params
+        # post-training calibration: ket factors to the wire format, once;
+        # a no-op for "none" and for already-quantized factors
+        self.params = quantize_params(params, quant)
         self.B = batch_slots
         self.max_len = max_len
         self.greedy = greedy

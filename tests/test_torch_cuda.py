@@ -39,6 +39,11 @@ route; parameters after three AdamW steps all
 within 2·lr per step (AdamW normalizes each update, so a near-zero gradient
 that differs in its last bits can move a parameter by up to lr either way)
 and 99.9% of them within 1e-5.
+
+The quantized serving legs (int8 and fp8 payloads with per-rank scales)
+take the tolerances of their fp32 legs: the kernels and the plain versions
+dequantize to the same floats (``float(q) * scale``) and then differ only
+in summation order, as the fp32 legs do.
 """
 
 import dataclasses
@@ -48,6 +53,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke
+from repro_torch.core import ketops
+from repro_torch.core import quant as Q
 from repro_torch.data.synthetic import DataConfig, batch_at
 from repro_torch.kernels.flash_attn import ops as FA
 from repro_torch.kernels.kron_gather import ops as G
@@ -311,7 +318,7 @@ def test_smoke_training_kernel_route_matches_plain(dev):
                      {k: after[k] - before[k] for k in after}))
     (l_k, p_k, n_k), (l_p, p_p, n_p) = runs
     assert n_k == {"kron_gather_fwd": 0, "kron_gather_fwd_stats": 3, "kron_gather_bwd": 3,
-                   "kron_ce_fwd": 3, "kron_ce_bwd": 3}
+                   "kron_gather_fwd_quant": 0, "kron_ce_fwd": 3, "kron_ce_bwd": 3}
     assert not any(n_p.values())
     torch.testing.assert_close(l_k, l_p, atol=1e-5, rtol=1e-4)
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_k, p_p)])
@@ -360,9 +367,11 @@ def test_kron_matmul_autograd_routes_agree(dev):
         assert y.dtype == torch.bfloat16
         grads.append(torch.autograd.grad(y.float().square().sum(), [x, *f]))
         launched = {k: M.launches[k] - before[k] for k in before}
-        assert launched == ({"kron_matmul_fwd": 1, "kron_matmul_bwd": 1}
+        assert launched == ({"kron_matmul_fwd": 1, "kron_matmul_bwd": 1,
+                             "kron_matmul_fwd_quant": 0}
                             if use_kernel is None else {"kron_matmul_fwd": 0,
-                                                        "kron_matmul_bwd": 0})
+                                                        "kron_matmul_bwd": 0,
+                                                        "kron_matmul_fwd_quant": 0})
     assert grads[0][0].dtype == torch.bfloat16
     for a, b in zip(*grads):
         _close_scaled(a.float(), b.float(), rtol=1e-2, scale=1e-2)
@@ -401,9 +410,106 @@ def test_smoke_ket_training_kernel_route_matches_plain(dev):
     (l_k, p_k, n_k), (l_p, p_p, n_p) = runs
     per_pass = 7 * cfg.num_layers  # seven ket projections per layer
     # the forward, its per-layer recompute in the backward, one backward each
-    assert n_k == {"kron_matmul_fwd": 3 * 2 * per_pass, "kron_matmul_bwd": 3 * per_pass}
+    assert n_k == {"kron_matmul_fwd": 3 * 2 * per_pass, "kron_matmul_bwd": 3 * per_pass,
+                   "kron_matmul_fwd_quant": 0}
     assert not any(n_p.values())
     torch.testing.assert_close(l_k, l_p, atol=1e-5, rtol=1e-4)
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_k, p_p)])
     assert diff.max().item() <= 2 * 3 * tcfg.optimizer.lr
     assert (diff > 1e-5).float().mean().item() < 1e-3
+
+
+def _quantized(dev, mode, rank, q, t, seed=0):
+    fq = [Q.quantize(f, mode) for f in _factors(dev, rank, q, t, seed=seed)]
+    return [f["q"] for f in fq], [f["scale"] for f in fq]
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("rank,q,t,n,ln", GATHER + [(32, (64, 32), (390, 390), 8, False)])
+def test_kron_gather_quant_kernel_matches_plain(dev, mode, rank, q, t, n, ln):
+    payloads, scales = _quantized(dev, mode, rank, q, t)
+    total = math.prod(t)
+    ids = torch.randint(0, total, (n,), device=dev, dtype=torch.int32)
+    ids[0], ids[-1] = 0, total - 1
+    dim = math.prod(q) - 1
+    before = dict(G.launches)
+    got = G.kron_gather_quant(payloads, scales, ids, dim, ln)
+    torch.cuda.synchronize()
+    assert G.launches == {**before,
+                          "kron_gather_fwd_quant": before["kron_gather_fwd_quant"] + 1}
+    want = G.kron_gather_quant(payloads, scales, ids, dim, ln, use_kernel=False)
+    assert got.shape == (n, dim) and got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    bad = G.kron_gather_quant(payloads, scales,
+                              torch.tensor([-1, 3, total], device=dev, dtype=torch.int32), dim)
+    assert torch.isnan(bad[0]).all() and torch.isnan(bad[2]).all()
+    assert torch.isfinite(bad[1]).all()
+
+
+# (rank, q, t, B, d_in, out_dim): a padded case, the head at B = 8 and 1, and
+# the four rank-8 ket projections at B = 8 (decode) and 128 (prefill chunks)
+QUANT_MATMUL = [(4, (8, 4), (17, 13), 5, 29, 200),
+                (32, (64, 32), (390, 390), 8, 2048, 151936),
+                (32, (64, 32), (390, 390), 1, 2048, 151936)] + [
+    (8, q, t, b, d_in, d_out) for b in (8, 128)
+    for q, t, d_in, d_out in (((64, 32), (64, 32), 2048, 2048),
+                              ((64, 32), (32, 32), 2048, 1024),
+                              ((64, 32), (96, 64), 2048, 6144),
+                              ((96, 64), (64, 32), 6144, 2048))]
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("rank,q,t,b,d_in,out_dim", QUANT_MATMUL)
+def test_kron_matmul_quant_kernel_matches_plain(dev, mode, rank, q, t, b, d_in, out_dim):
+    payloads, scales = _quantized(dev, mode, rank, q, t, seed=4)
+    x = torch.randn((b, d_in), device=dev)
+    before = dict(M.launches)
+    got = M.kron_matmul_quant(payloads, scales, x, out_dim)
+    torch.cuda.synchronize()
+    assert M.launches == {**before,
+                          "kron_matmul_fwd_quant": before["kron_matmul_fwd_quant"] + 1}
+    want = M.kron_matmul_quant(payloads, scales, x, out_dim, use_kernel=False)
+    assert got.shape == (b, out_dim) and got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_mixed_quantized_stacks_are_refused_on_the_card(dev):
+    f = _factors(dev, 2, (8, 8), (32, 32))
+    mixed = [Q.quantize(f[0], "int8"), f[1]]
+    spec = ketops.KronSpec(in_dim=64, out_dim=1024, rank=2, q_dims=(8, 8), t_dims=(32, 32))
+    with pytest.raises(NotImplementedError):
+        ketops.apply_vector(spec, {"factors": mixed},
+                            torch.zeros(2, device=dev, dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        ketops.apply_matrix_factors(mixed, torch.zeros(2, 64, device=dev), 1024)
+    plain = ketops.apply_matrix_factors(mixed, torch.ones(2, 64, device=dev), 1024,
+                                        use_kernel=False)
+    assert torch.isfinite(plain).all()
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("linear", ["dense", "ket"])
+def test_smoke_quant_serving_kernel_route_matches_plain(dev, linear, mode):
+    kw = dict(linear_kind="ket", linear_rank=4) if linear == "ket" else {}
+    cfg = get_smoke("qwen3-1.7b", dtype=torch.float32, quant=mode, **kw)
+    params = MD.init_params(cfg, seed=0, device=dev)
+    assert Q.is_quantized(params["head"]["factors"][0])
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False, linear_use_kernel=False)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=dev, dtype=torch.int32)
+    lens = torch.tensor([8, 5], device=dev, dtype=torch.int32)
+    outs = []
+    for c in (cfg, plain_cfg):
+        before = (dict(G.launches), dict(M.launches))
+        cache = MD.init_cache(c, 2, 16, device=dev)
+        logits, cache = MD.prefill_chunk_fn(params, c, cache, toks, lens)
+        step_logits, cache = MD.serve_step_fn(params, c, cache, logits.argmax(-1).int())
+        outs.append((logits, step_logits))
+        if c is cfg:  # two calls: one quantized lookup, 1 + 21 ket chains each
+            n_mm = 2 * (1 + (7 * cfg.num_layers if linear == "ket" else 0))
+            assert G.launches["kron_gather_fwd_quant"] == before[0]["kron_gather_fwd_quant"] + 2
+            assert M.launches["kron_matmul_fwd_quant"] == \
+                before[1]["kron_matmul_fwd_quant"] + n_mm
+            assert G.launches["kron_gather_fwd"] == before[0]["kron_gather_fwd"]
+            assert M.launches["kron_matmul_fwd"] == before[1]["kron_matmul_fwd"]
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)

@@ -344,10 +344,25 @@ def test_engine_refuses_unported_options(models):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA card"):
             ServingEngine(tcfg, tparams)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServingEngine(tcfg, tparams, quant="int8", device="cpu")
     with pytest.raises(ValueError, match="prefix_cache"):
         ServingEngine(tcfg, tparams, cache_mode="dense", prefix_cache=True, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_engine_serves_quantized(models, mode):
+    """``quant=`` calibrates the embedding and head stacks at construction;
+    the engine then gives the same greedy outputs as an fp32 engine on the
+    dequantized parameters (the plain versions dequantize to the same
+    floats)."""
+    from repro_torch.core import quant as Q
+    _, _, tcfg, tparams = models
+    out, eng = _run_port_engine(tcfg, tparams, CONF_PROMPTS, quant=mode)
+    eng.check()
+    assert all(Q.is_quantized(f) for f in eng.params["embed"]["factors"])
+    assert eng.stats()["free_pages"] == eng.stats()["page_capacity"]
+    want, _ = _run_port_engine(tcfg, Q.dequantize_params(Q.quantize_params(tparams, mode)),
+                               CONF_PROMPTS)
+    assert out == want and all(len(o) == 4 for o in out)
 
 
 def test_engine_sampling_is_seeded_and_failures_propagate(models):

@@ -161,8 +161,31 @@ def test_launcher_engine_defaults_to_the_card():
         launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--engine"])
 
 
-@pytest.mark.parametrize("flag", [pytest.param(["--quant", "int8"], id="flag2"),
-                                  pytest.param(["--mesh", "1x2"], id="flag3")])
+@pytest.mark.parametrize("flag", [pytest.param(["--mesh", "1x2"], id="flag3")])
 def test_launcher_refuses_unported_modes(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", *flag])
+
+
+# the smoke embedding and head: 4 stacks of 2 x 8 x 32 = 2,048 payloads and
+# 8 scales
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("engine", [False, True], ids=["raw", "engine"])
+def test_launcher_serves_quantized(capsys, engine, mode):
+    args = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--quant", mode]
+    if engine:
+        args += ["--engine", "--requests", "6", "--batch", "3", "--prompt-len", "20",
+                 "--new-tokens", "3", "--max-len", "32", "--prefill-chunk", "8"]
+    else:
+        args += ["--batch", "2", "--new-tokens", "3", "--max-len", "8"]
+    assert launch_serve.main(args) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2] == (f"[serve] ket operators (4 factor stacks): 2,080 B stored as "
+                         f"{mode}, 8,192 B in fp32")
+    if engine:  # the JAX launcher prints the same ticks for these arguments
+        assert lines[-1].startswith("[serve:engine] qwen3-1.7b-smoke chunked/paged/"
+                                    "optimistic: 6 reqs in 10 ticks (6 prefill + 4 decode)")
+        assert lines[-1].endswith("pages free=6/6")
+    else:
+        assert lines[-1].startswith("[serve] qwen3-1.7b-smoke mesh=OrderedDict({'data': 1, "
+                                    "'model': 1}) cache=dense: 6 tok in ")
