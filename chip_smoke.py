@@ -8,7 +8,7 @@ port's CUDA kernels from src/repro_torch/csrc into build/, and exits
 non-zero, printing no result, when anything is missing or any phase fails:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   the kernel build of the four sources (one nvcc each, in parallel,
+   the kernel build of the five sources (one nvcc each, in parallel,
    timed, with nvcc's register / shared-memory report);
 2. every kernel of the serving paths against its plain PyTorch version at
    the full qwen3-1.7b shapes, with the tolerance stated, and timed with
@@ -83,10 +83,34 @@ non-zero, printing no result, when anything is missing or any phase fails:
    (no fp32 leg launched), the stored bytes of the embedding, head and ket
    linears per mode, and the share of greedy tokens that agree with the
    fp32 run of the same weights (a report, not a gate);
-12. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+12. slice 6's kernel (run with the other kernel phases, before any
+   model): the flash-attention forward at qwen3-1.7b's widths (16 heads
+   over 8 kv heads, head_dim 128) against ``attention_ref`` at the
+   training shape (8 x 256 tokens, causal, bf16 and fp32), a window, a
+   bidirectional and an Sq != Skv case, and at the prefill shape (1 x
+   32,768 tokens, bf16, causal) against the model's plain chunked
+   attention (``attention_ref``'s scores would take 68.7 GB there); every
+   16-bit case also row by row against the fp32 oracle on the same values
+   (``attention_ref``, or the chunked attention at the prefill); each
+   timed beside its bound (the operations of the valid pairs only, at the
+   card's peak for the inputs' type: bf16 tensor cores for bf16, fp32
+   CUDA cores for fp32), the plain version and
+   ``F.scaled_dot_product_attention`` on the same tensors in (B, H, S, Dh)
+   layout as a yardstick;
+13. slice 6's path at full width: the full qwen3-1.7b with seeded weights
+   runs ``prefill_fn`` on 1 prompt of 32,768 tokens in bf16 (the repo's
+   ``prefill_32k`` length, its batch cut from 32 to 1): launch counts (28
+   flash launches, one lookup), wall time and prompt tok/s, peak memory,
+   every cache's shape and finiteness, a profile of a second call; then an
+   fp32 ``prefill_fn`` at 1 x 4,096 through the kernels against
+   ``use_kernels=False`` (the last hidden state and every layer's
+   caches). The training paths of phases 7 and 8 count 56 flash
+   launches per step (28 forward, 28 in the per-layer recompute), and the
+   serving paths none;
+14. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
-No depth is cut: every path runs the published 28 layers (the whole
-script takes a few minutes on an H100).
+Only the prefill's batch is cut (32 -> 1): every path runs the published
+28 layers (the whole script takes a few minutes on an H100).
 """
 
 from __future__ import annotations
@@ -104,10 +128,12 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
-# fp32 FLOP/s on the CUDA cores (both kernels compute in fp32)
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit, dense): HBM3
+# bytes/s, fp32 FLOP/s on the CUDA cores and bf16 / fp16 FLOP/s on the
+# tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 ARCH = "qwen3-1.7b"
 BATCH, PROMPT_LEN, NEW_TOKENS, MAX_LEN = 8, 128, 32, 512
@@ -152,6 +178,33 @@ RAGGED = {32: (0, 1, 17, 100, 144, 512, 600, 333),
 # and a full 4096-token read
 TIMED_LEN = {32: 144, 256: 4096}
 ENGINE_REQUESTS, SHARED_PREFIX, TIGHT_PAGES = 16, 64, 60
+# the flash kernel against attention_ref: fp32 is the same online softmax
+# in another summation order; in bf16 the outputs round to bf16 and the
+# kernel rounds each probability to bf16 before the PV product (the oracle
+# does not), and against the chunked attention the chunked version also
+# rounds q * Dh^-0.5 back to bf16 (the kernel keeps it in fp32)
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-4), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+# a bf16 output row (one query and head) against the fp32 oracle on the
+# same values, relative to the row's norm: the kernel's two roundings (p
+# and the output, 2^-9 relative each) stay near 2e-3, while a dropped or
+# misplaced 64-key tile moves a row of the 32,768-token prefill by several
+# per cent (8 / sqrt(row) at unit-normal q, k, v); the gate at the prefill,
+# where the rows' elements are about sqrt(e / row) small
+FLASH_ROW_RTOL = 1e-2
+# (name, B, Sq, Skv, causal, window, dtype): the training shape first (the
+# JSON row), then a window, bidirectional and Sq != Skv, and the prefill
+FLASH_CASES = (("train", 8, 256, 256, True, 0, "bfloat16"),
+               ("train fp32", 8, 256, 256, True, 0, "float32"),
+               ("window 100", 8, 256, 256, True, 100, "bfloat16"),
+               ("bidirectional", 8, 256, 256, False, 0, "bfloat16"),
+               ("Sq != Skv", 8, 200, 333, True, 0, "bfloat16"),
+               ("prefill", 1, 32768, 32768, True, 0, "bfloat16"))
+PREFILL_LEN, PREFILL_F32_LEN = 32768, 4096
+# the fp32 prefill through the kernels against use_kernels=False, every
+# layer's caches: 28 random fp32 layers may grow the embedding's ~1e-6
+# difference and the attention's summation order (the card tests' smoke
+# tolerance)
+PREFILL_F32_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
 def log(msg: str) -> None:
@@ -192,9 +245,10 @@ def time_ms(torch, fn, flush, iters: int = 50, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -297,6 +351,120 @@ def check_kernels(torch, dev):
             if e["shape"].startswith((f"ids ({BATCH},)", f"x ({BATCH},"))]
 
 
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of a head that pass the mask: the work the flash
+    kernel's bound counts."""
+    total = 0
+    for i in range(Sq):
+        hi = min(i, Skv - 1) if causal else Skv - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def check_flash_kernels(torch, dev):
+    """Phase 12: the flash-attention forward against its plain versions at
+    qwen3-1.7b's widths, timed beside its bound, the plain version and SDPA.
+    Returns the JSON row of the training shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as FA
+    from repro_torch.models import attention as A
+
+    cfg = get_config(ARCH)
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(11)
+    scratch = torch.empty(16 * 2 ** 20, dtype=torch.int32, device=dev)  # 64 MB > L2
+    flush = scratch.zero_
+    results = []
+    for name, B, Sq, Skv, causal, window, dtype in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, Sq, H, Dh), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Skv, KVH, Dh), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Skv, KVH, Dh), generator=gen, device=dev).to(dt)
+        log(f"[kernels] flash_fwd {name}: q ({B}, {Sq}, {H}, {Dh}), k, v ({B}, {Skv}, "
+            f"{KVH}, {Dh}) {dtype}, causal {causal}, window {window}")
+        got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"flash_fwd {name}: non-finite output")
+        big = name == "prefill"
+        if big:  # the oracle's scores would take 68.7 GB here
+            plain = lambda: A.flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+            oracle32 = lambda: A.flash_attention(q.float(), k.float(), v.float(), causal=True,
+                                                 chunk=cfg.attn_chunk)
+        else:
+            plain = lambda: FA.attention_ref(q, k, v, causal=causal, window=window)
+            oracle32 = lambda: FA.attention_ref(q.float(), k.float(), v.float(),
+                                                causal=causal, window=window)
+        err = max_err(torch, got.float(), plain().float(), FLASH_TOL[dtype],
+                      f"flash_fwd {name} vs {'the chunked attention' if big else 'attention_ref'}")
+        worst = None
+        if dtype != "float32":
+            want = oracle32()
+            row = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+            worst, mid = row.max().item(), row.median().item()
+            what = "the fp32 chunked attention" if big else "fp32 attention_ref"
+            log(f"  flash_fwd {name} vs {what} on the same values: max |diff| "
+                f"{(got.float() - want).abs().max().item():.3e}, |o| median "
+                f"{want.abs().median().item():.3e}; per-row relative error max {worst:.3e}, "
+                f"median {mid:.3e} (limit {FLASH_ROW_RTOL:g}) "
+                f"{'ok' if worst <= FLASH_ROW_RTOL else 'DISAGREES'}")
+            if not worst <= FLASH_ROW_RTOL:
+                fail(f"flash_fwd {name}: a row is {worst:.3e} off the fp32 oracle")
+            del want, row
+        # the yardstick on the same tensors in (B, H, S, Dh) layout
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window > 0:
+            i = torch.arange(Sq, device=dev)[:, None]
+            j = torch.arange(Skv, device=dev)[None, :]
+            mask = (j <= i) & (j > i - window)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                          enable_gqa=True)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                          enable_gqa=True)
+        diff = (sdpa().transpose(1, 2).float() - got.float()).abs().max().item()
+        log(f"  sdpa vs kernel max |diff| = {diff:.3e}")
+        pairs = attention_pairs(Sq, Skv, causal, window)
+        moved = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+        flops = 4.0 * B * H * Dh * pairs
+        b_ms, b_by = bound(moved, flops,
+                           PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS)
+        results.append({
+            "name": "flash_fwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn/flash_attn.py:27",
+            "shape": f"{name}: q ({B}, {Sq}, {H}, {Dh}), kv ({B}, {Skv}, {KVH}, {Dh}) "
+                     f"{dtype}",
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: FA.flash_attention_cuda(q, k, v, causal=causal,
+                                                                 window=window),
+                          flush, iters=5 if big else 50, warmup=1 if big else 5),
+            "plain_ms": time_ms(torch, plain, flush, iters=3 if big else 20,
+                                warmup=1 if big else 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            # the same work on the fp32 CUDA cores, where this kernel computes
+            "bound_cuda_cores_ms": bound(moved, flops)[0],
+            "library_ms": time_ms(torch, sdpa, flush, iters=10 if big else 50),
+            "library": "F.scaled_dot_product_attention on the same tensors in (B, H, S, "
+                       "Dh) layout" + (" with a boolean window mask" if window else ""),
+            "plain": "the model's chunked attention" if big else "attention_ref",
+            "max_row_rel_err_vs_fp32": worst,
+        })
+        del q, k, v, got, qt, kt, vt
+        torch.cuda.empty_cache()
+    del scratch
+    torch.cuda.empty_cache()
+    for e in results:
+        log(f"  flash_fwd {e['shape']:62s} kernel {e['ms']:.4f} ms  bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']}; on the fp32 CUDA cores "
+            f"{e['bound_cuda_cores_ms']:.4f} ms)  plain ({e['plain']}) "
+            f"{e['plain_ms']:.4f} ms  sdpa {e['library_ms']:.4f} ms")
+    return results[:1]
+
+
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.flash_attn import ops as FA
@@ -367,6 +535,7 @@ def drive_main_path(torch, dev, params, quant: str = "none", steps: int = NEW_TO
     steps. Returns the launches and the greedy tokens (steps + 1, 8)."""
     from repro_torch.configs import get_config
     from repro_torch.core.quant import quantize_params
+    from repro_torch.kernels.flash_attn import ops as FA
     from repro_torch.kernels.kron_gather import ops as G
     from repro_torch.kernels.kron_matmul import ops as M
     from repro_torch.models import model as MD
@@ -405,7 +574,8 @@ def drive_main_path(torch, dev, params, quant: str = "none", steps: int = NEW_TO
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
         launches = {**{k: G.launches[k] for k in ("kron_gather_fwd", "kron_gather_fwd_quant")},
-                    **{k: M.launches[k] for k in ("kron_matmul_fwd", "kron_matmul_fwd_quant")}}
+                    **{k: M.launches[k] for k in ("kron_matmul_fwd", "kron_matmul_fwd_quant")},
+                    "flash_fwd": FA.launches["flash_fwd"]}
 
     n_chunks = PROMPT_LEN // C
     calls = n_chunks + steps  # one launch of each leg per prefill chunk and per step
@@ -595,7 +765,8 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
     launches = {**{k: G.launches[k] for k in ("kron_gather_fwd", "kron_gather_fwd_quant")},
                 **{k: M.launches[k] for k in ("kron_matmul_fwd", "kron_matmul_fwd_quant")},
                 "paged_split": FA.launches["paged_split"],
-                "paged_combine": FA.launches["paged_combine"]}
+                "paged_combine": FA.launches["paged_combine"],
+                "flash_fwd": FA.launches["flash_fwd"]}
     st = eng.stats()
     if eng.prefix_cache is not None:  # at drain only the cache holds pages
         eng.prefix_cache.evict(len(eng.prefix_cache))
@@ -616,7 +787,7 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
     expected = {"kron_gather_fwd": 0, "kron_gather_fwd_quant": 0, "kron_matmul_fwd": 0,
                 "kron_matmul_fwd_quant": 0,
                 "paged_split": cfg.num_layers * st["decode_ticks"],
-                "paged_combine": cfg.num_layers * st["decode_ticks"]}
+                "paged_combine": cfg.num_layers * st["decode_ticks"], "flash_fwd": 0}
     expected[f"kron_gather_fwd{leg}"] = expected[f"kron_matmul_fwd{leg}"] = st["ticks"]
     log(f"[engine {what}] launches {launches} (expected {expected})")
     if launches != expected:
@@ -902,6 +1073,7 @@ def drive_training(torch, dev, cfg, tag: str):
     counts checked per leg; returns the launches and the training state (for
     the fp32 check)."""
     from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.kernels.flash_attn import ops as FA
     from repro_torch.kernels.kron_gather import ops as G
     from repro_torch.kernels.kron_logits import ops as CE
     from repro_torch.kernels.kron_matmul import ops as M
@@ -935,7 +1107,8 @@ def drive_training(torch, dev, cfg, tag: str):
         gnorms.append(float(metrics["grad_norm"]))
         log(f"[{tag}] step {i}: loss {losses[-1]:.4f}, grad norm {gnorms[-1]:.4f}, "
             f"{walls[-1]:.1f} ms")
-    launches = {**G.launches, **CE.launches, **M.launches}
+    launches = {**G.launches, **CE.launches, **M.launches,
+                "flash_fwd": FA.launches["flash_fwd"]}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # a ket layer runs 7 projections forward, again in its recompute, and
     # one backward each
@@ -944,9 +1117,10 @@ def drive_training(torch, dev, cfg, tag: str):
     expected = {"kron_gather_fwd": 0, "kron_gather_fwd_stats": S, "kron_gather_bwd": S,
                 "kron_gather_fwd_quant": 0, "kron_ce_fwd": S, "kron_ce_bwd": S,
                 "kron_matmul_fwd": 2 * ket * S, "kron_matmul_bwd": ket * S,
-                "kron_matmul_fwd_quant": 0}
+                "kron_matmul_fwd_quant": 0, "flash_fwd": 2 * cfg.num_layers * S}
     log(f"[{tag}] launches {launches} (expected {expected}: one per training leg per "
-        f"step; per ket projection per step two forwards and one backward)")
+        f"step; per ket projection per step two forwards and one backward; per layer "
+        f"per step two flash forwards, the second in the recompute)")
     if launches != expected:
         fail(f"{tag}: launches {launches}, expected {expected}")
     if not all(math.isfinite(v) for v in losses + gnorms):
@@ -958,7 +1132,8 @@ def drive_training(torch, dev, cfg, tag: str):
         f"{steady:.1f} ms over steps 1-{TRAIN_STEPS - 1} ({TRAIN_TOKENS / steady * 1e3:.0f} "
         f"tokens/s); peak device memory {peak:.2f} GiB")
     profile_call(torch, f"one {tag} step", lambda: step_fn(state, batches[TRAIN_STEPS]),
-                 steady, groups={"kron_matmul kernels": ["kron_stage", "kron_gemm",
+                 steady, groups={"flash kernel": ["flash_fwd_kernel"],
+                                 "kron_matmul kernels": ["kron_stage", "kron_gemm",
                                                          "kron_sum_parts"],
                                  "CE kernels": ["ce_fwd_kernel", "ce_bwd_kernel",
                                                 "ce_combine", "sum_parts"],
@@ -1296,6 +1471,7 @@ def drive_ket_serving(torch, dev, quant: str = "none"):
     from repro_torch.core.embedding import embedding_num_bytes
     from repro_torch.core.logits import head_num_bytes
     from repro_torch.core.quant import quantize_params, storage_bytes
+    from repro_torch.kernels.flash_attn import ops as FA
     from repro_torch.kernels.kron_gather import ops as G
     from repro_torch.kernels.kron_matmul import ops as M
     from repro_torch.models import model as MD
@@ -1356,7 +1532,7 @@ def drive_ket_serving(torch, dev, quant: str = "none"):
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
         launches = {**{k: G.launches[k] for k in ("kron_gather_fwd", "kron_gather_fwd_quant")},
-                    **M.launches}
+                    **M.launches, "flash_fwd": FA.launches["flash_fwd"]}
     n_chunks = PROMPT_LEN // C
     calls = n_chunks + KET_DECODE_STEPS
     leg = "" if quant == "none" else "_quant"
@@ -1364,7 +1540,7 @@ def drive_ket_serving(torch, dev, quant: str = "none"):
     expected[f"kron_gather_fwd{leg}"] = calls
     expected[f"kron_matmul_fwd{leg}"] = calls * (7 * cfg.num_layers + 1)
     log(f"[{tag}] launches {launches} (expected {expected}: per call one lookup, "
-        f"7 ket projections per layer and the head)")
+        f"7 ket projections per layer and the head; no flash launch)")
     if launches != expected:
         fail(f"{tag}: launches {launches}, expected {expected}")
     if tuple(logits.shape) != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
@@ -1399,6 +1575,98 @@ def drive_ket_serving(torch, dev, quant: str = "none"):
     return launches, toks
 
 
+def drive_prefill(torch, dev):
+    """Phase 13: slice 6's path, ``prefill_fn`` on one 32,768-token prompt of
+    the full config (bf16), launch counts checked, timed, profiled; then an
+    fp32 prefill at 4,096 tokens through the kernels against
+    ``use_kernels=False``. Returns the launches of the 32,768-token call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as FA
+    from repro_torch.kernels.kron_gather import ops as G
+    from repro_torch.kernels.kron_logits import ops as CE
+    from repro_torch.kernels.kron_matmul import ops as M
+    from repro_torch.models import model as MD
+
+    cfg = get_config(ARCH)
+    params = MD.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), generator=gen, device=dev,
+                           dtype=torch.int32)
+    log(f"[prefill] {cfg.name}: prefill_fn on 1 prompt of {PREFILL_LEN:,} tokens "
+        f"(prefill_32k's length, its batch cut from 32 to 1), activations {cfg.dtype}")
+    with torch.inference_mode():
+        MD.prefill_fn(params, cfg, {"tokens": tokens[:, :1024]})  # first-call set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        x_last, caches = MD.prefill_fn(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**G.launches, **CE.launches, **M.launches, **FA.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {k: 0 for k in launches}
+    expected["kron_gather_fwd"] = 1  # the embedding lookup, no grad: the serving leg
+    expected["flash_fwd"] = cfg.num_layers
+    log(f"[prefill] launches {launches} (expected {expected}: one lookup, one flash "
+        f"forward per layer)")
+    if launches != expected:
+        fail(f"prefill: launches {launches}, expected {expected}")
+    shape = (1, PREFILL_LEN, cfg.num_kv_heads, cfg.head_dim)
+    if tuple(x_last.shape) != (1, cfg.d_model) or not torch.isfinite(x_last).all():
+        fail(f"prefill: last hidden state {tuple(x_last.shape)}, finite "
+             f"{bool(torch.isfinite(x_last).all())}")
+    if len(caches) != cfg.num_layers:
+        fail(f"prefill: {len(caches)} caches for {cfg.num_layers} layers")
+    for i, c in enumerate(caches):
+        for name in ("k", "v"):
+            t = c[name]
+            if tuple(t.shape) != shape or t.dtype != cfg.dtype or not torch.isfinite(t).all():
+                fail(f"prefill: layer {i} {name} {tuple(t.shape)} {t.dtype}, finite "
+                     f"{bool(torch.isfinite(t).all())}; expected {shape} {cfg.dtype}")
+    log(f"[prefill] {PREFILL_LEN:,} tokens in {wall:.3f} s ({PREFILL_LEN / wall:.0f} prompt "
+        f"tok/s); peak device memory {peak:.2f} GiB; {len(caches)} caches of k and v "
+        f"{shape} {cfg.dtype}, all finite; last hidden state finite")
+    del caches, x_last
+    with torch.inference_mode():
+        profile_call(torch, f"one {PREFILL_LEN:,}-token prefill_fn", lambda: MD.prefill_fn(
+            params, cfg, {"tokens": tokens}), wall * 1e3,
+            groups={"flash kernel": ["flash_fwd_kernel"], "kron_gather kernels":
+                    ["kron_gather2"], "GEMMs": ["gemm", "nvjet", "xmma", "cutlass"],
+                    "elementwise and copies": ["elementwise", "copy", "reduce"]})
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    short = tokens[:, :PREFILL_F32_LEN]
+    outs = []
+    with torch.inference_mode():
+        for c in (cfg32, dataclasses.replace(cfg32, use_kernels=False)):
+            before = FA.launches["flash_fwd"]
+            outs.append(MD.prefill_fn(params, c, {"tokens": short}))
+            ran = FA.launches["flash_fwd"] - before
+            if ran != (cfg.num_layers if c.use_kernels is None else 0):
+                fail(f"fp32 prefill (use_kernels={c.use_kernels}) launched flash {ran} times")
+    (xk, ck), (xp, cp) = outs
+    pairs = [("last hidden state", xk, xp)] + [
+        (f"layer {i} {name}", ck[i][name], cp[i][name])
+        for i in range(cfg.num_layers) for name in ("k", "v")]
+    errs = {}
+    for what, a, b in pairs:
+        errs[what] = (a - b).abs().max().item()
+        if not torch.allclose(a, b, **PREFILL_F32_TOL):
+            fail(f"fp32 prefill at {PREFILL_F32_LEN} tokens, kernel route vs "
+                 f"use_kernels=False, {what}: max |kernel - plain| = {errs[what]:.3e}")
+    worst = max(errs, key=errs.get)
+    log(f"  fp32 prefill at {PREFILL_F32_LEN} tokens, kernel route vs use_kernels=False: "
+        f"the last hidden state and every layer's k and v within atol "
+        f"{PREFILL_F32_TOL['atol']:g}, rtol {PREFILL_F32_TOL['rtol']:g}; max |kernel - plain| "
+        f"{errs['last hidden state']:.3e} on the hidden state, {errs[worst]:.3e} at most "
+        f"({worst}) ok")
+    del outs, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def agree(what: str, got, want) -> None:
     """Report the share of greedy tokens of a quantized run equal to the
     fp32 run's on the same weights, both (sequences, positions). The
@@ -1430,7 +1698,7 @@ def main() -> None:
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     reports = build.build_all(["kron_gather", "kron_matmul", "paged_attention",
-                               "kron_logits"])
+                               "kron_logits", "flash_attn"])
     log(f"[env] kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for name, out in reports.items():
         for line in out.splitlines():
@@ -1439,7 +1707,7 @@ def main() -> None:
 
     kernels = (check_kernels(torch, dev) + check_paged_kernels(torch, dev)
                + check_training_kernels(torch, dev) + check_ket_kernels(torch, dev)
-               + check_quant_kernels(torch, dev))
+               + check_quant_kernels(torch, dev) + check_flash_kernels(torch, dev))
     params = init_params(torch, dev)
     launches, main_toks = drive_main_path(torch, dev, params)  # slice 1's path
     engine_launches, engine_outs = drive_engine(torch, dev, params)  # slice 2's, run (a)
@@ -1469,6 +1737,7 @@ def main() -> None:
     _, ket_toks = drive_ket_serving(torch, dev)  # slice 4's serving
     ket_quant_launches, ket_quant_toks = drive_ket_serving(torch, dev, quant="int8")
     agree("ket serving, int8", ket_quant_toks.T, ket_toks.T)
+    prefill_launches = drive_prefill(torch, dev)  # slice 6's path
     log(f"[quant] launches of the quantized legs: engine run (a) int8 "
         f"{quant_launches}; raw steps fp8 {fp8_launches}; ket serving int8 "
         f"{ket_quant_launches}")
@@ -1479,9 +1748,12 @@ def main() -> None:
                "kron_ce_fwd": train_launches, "kron_ce_bwd": train_launches,
                "kron_matmul_bwd": ket_launches,
                "kron_gather_fwd_quant": quant_launches,
-               "kron_matmul_fwd_quant": quant_launches}
+               "kron_matmul_fwd_quant": quant_launches,
+               "flash_fwd": train_launches}
     for e in kernels:
         e["launches"] = path_of[e["name"]][e["name"]]
+        if e["name"] == "flash_fwd":  # its other path: one 32,768-token prefill_fn
+            e["launches_prefill"] = prefill_launches["flash_fwd"]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,9 +53,12 @@ class ModelConfig:
     head_rank: int = 32
     # t1 digits per vocab tile of the CE's plain route (core/logits.py)
     head_vocab_tile: int = 4
-    # hand-written kernels for lookup / head: None = auto (the kernel for
-    # CUDA tensors, the plain version for CPU tensors); False = the plain
-    # version everywhere, because the caller asked for it
+    # hand-written kernels for lookup / head, the paged decode read and the
+    # attention of the full-sequence forward (training and prefill_fn):
+    # None = auto (the kernel for CUDA tensors, the plain version for CPU
+    # tensors: attention_ref for the op, the chunked attention for the
+    # model); False = the plain version everywhere, because the caller
+    # asked for it
     use_kernels: Optional[bool] = None
 
     # ket linear layers: "ket" stores the FFN wi/wg/wo and the attention

@@ -8,6 +8,10 @@ then the remainder). Leaves are numpy arrays on the JAX side, torch
 tensors on the port's. :func:`torch_params_to_numpy` is the exact inverse
 of :func:`jax_params_to_torch`.
 
+:func:`jax_caches_to_torch` maps the caches of JAX ``prefill_fn`` the same
+way: ``{"groups": (per pattern position, stacked over groups), "rem":
+[...]}`` -> the port's list, one ``{"k", "v"}`` per layer.
+
 Quantized ket factors (core/quant) cross as they are: int8 payloads and
 fp32 scales as any array. fp8 payloads cross as their bits, without
 ``ml_dtypes``: a numpy leaf whose dtype is ``float8_e4m3fn`` becomes a
@@ -24,8 +28,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["jax_params_to_torch", "torch_params_to_numpy", "array_to_torch",
-           "tensor_to_numpy"]
+__all__ = ["jax_params_to_torch", "torch_params_to_numpy", "jax_caches_to_torch",
+           "array_to_torch", "tensor_to_numpy"]
 
 
 def _map(tree, fn):
@@ -86,6 +90,18 @@ def jax_params_to_torch(params_np: dict, cfg: ModelConfig, device="cuda") -> dic
         "head": params_np["head"],
     }
     return _map(tree, lambda a: array_to_torch(a, dev))
+
+
+def jax_caches_to_torch(caches_np: dict, cfg: ModelConfig, device="cuda") -> list:
+    """JAX ``prefill_fn`` caches (numpy leaves) -> the port's list of
+    per-layer caches on ``device``, in execution order."""
+    dev = resolve_device(device)
+    n_groups, n_rem = _groups(cfg)
+    n_pat = len(cfg.layer_pattern)
+    groups = caches_np["groups"]
+    layers = [_index(groups[i], g) for g in range(n_groups) for i in range(n_pat)]
+    layers += list(caches_np["rem"])[:n_rem]
+    return _map(layers, lambda a: array_to_torch(a, dev))
 
 
 def torch_params_to_numpy(params: dict, cfg: ModelConfig) -> dict:

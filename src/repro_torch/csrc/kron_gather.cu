@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_cap.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -419,16 +421,9 @@ int launch_gather(const int32_t* ids, int n_ids, const T* f1, const T* f2, const
                   float eps, float* out, int out_cols, float* stats, cudaStream_t st) {
   if (n_ids <= 0) return 0;
   const size_t smem = static_cast<size_t>(gather_smem_bytes(rank, q1, q2));
-  // raise the dynamic shared-memory cap (one per payload type) only when a
-  // shape needs more than any earlier launch
-  static size_t smem_cap = 48 * 1024;
-  if (smem > smem_cap) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kron_gather2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_cap = smem;
-  }
+  static size_t caps[kMaxDevices] = {};  // one set per payload type
+  const int rc = raise_smem_cap(kron_gather2_kernel<T>, smem, caps);
+  if (rc) return rc;
   kron_gather2_kernel<T><<<n_ids, kThreads, smem, st>>>(
       ids, f1, f2, s1, s2, rank, q1, t1, q2, t2, use_ln, eps, out, out_cols, stats);
   return static_cast<int>(cudaGetLastError());
@@ -487,14 +482,9 @@ extern "C" int w2k_kron_gather2_bwd(const int32_t* ids, int n_ids, const float* 
   if (n_ids <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(w2k_kron_gather2_bwd_smem_bytes(rank, q1, q2));
-  static size_t smem_cap = 48 * 1024;
-  if (smem > smem_cap) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kron_gather2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_cap = smem;
-  }
+  static size_t caps[kMaxDevices] = {};
+  const int rc = raise_smem_cap(kron_gather2_bwd_kernel, smem, caps);
+  if (rc) return rc;
   kron_gather2_bwd_kernel<<<n_ids, kThreads, smem, st>>>(
       ids, g, g_cols, stats, f1, f2, rank, q1, t1, q2, t2, use_ln, du_rows, dv_rows);
   const cudaError_t e = cudaGetLastError();

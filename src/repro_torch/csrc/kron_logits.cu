@@ -61,6 +61,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_cap.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -599,17 +601,6 @@ Dims make_dims(int n, int r, int q1, int t1, int q2, int t2, int vocab, int spli
   return d;
 }
 
-template <typename K>
-int set_smem(K kernel, size_t smem, size_t& cap) {
-  if (smem > cap) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cap = smem;
-  }
-  return 0;
-}
-
 int sum_parts(const float* part, int parts, long long n, float* out, cudaStream_t st) {
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;
@@ -638,8 +629,8 @@ extern "C" int w2k_kron_ce_fwd(const float* x, int n, const int32_t* labels, con
   const Dims d = make_dims(n, r, q1, t1, q2, t2, vocab, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(w2k_kron_ce_smem_bytes(r, q1, q2, t2, 0));
-  static size_t cap = 48 * 1024;
-  int rc = set_smem(ce_fwd_kernel, smem, cap);
+  static size_t caps[kMaxDevices] = {};
+  int rc = raise_smem_cap(ce_fwd_kernel, smem, caps);
   if (rc) return rc;
   ce_fwd_kernel<<<dim3(d.npad / kRows, splits), kThreads, smem, st>>>(
       x, labels, f1, f2, d, m_part, l_part, y_part);
@@ -664,8 +655,8 @@ extern "C" int w2k_kron_ce_bwd(const float* x, int n, const int32_t* labels, con
   const Dims d = make_dims(n, r, q1, t1, q2, t2, vocab, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(w2k_kron_ce_smem_bytes(r, q1, q2, t2, 1));
-  static size_t cap = 48 * 1024;
-  int rc = set_smem(ce_bwd_kernel, smem, cap);
+  static size_t caps[kMaxDevices] = {};
+  int rc = raise_smem_cap(ce_bwd_kernel, smem, caps);
   if (rc) return rc;
   const int n_tb = d.npad / kRows;
   ce_bwd_kernel<<<dim3(n_tb, splits), kThreads, smem, st>>>(

@@ -66,6 +66,8 @@
 
 #include <type_traits>
 
+#include "smem_cap.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -509,16 +511,9 @@ template <typename T>
 int launch_stage1(const float* x, int batch, const T* f1, const float* s1, const float* s2,
                   int rank, int q1, int t1, int q2, float* z, cudaStream_t st) {
   const size_t smem = static_cast<size_t>(stage1_smem_bytes(rank, q1, q2));
-  // raise the dynamic shared-memory cap (one per payload type) only when a
-  // shape needs more than any earlier launch
-  static size_t smem_cap = 48 * 1024;
-  if (smem > smem_cap) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kron_stage1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_cap = smem;
-  }
+  static size_t caps[kMaxDevices] = {};  // one set per payload type
+  const int rc = raise_smem_cap(kron_stage1_kernel<T>, smem, caps);
+  if (rc) return rc;
   const int groups = (rank + f1_ranks_per_block(rank, q1, q2) - 1) /
                      f1_ranks_per_block(rank, q1, q2);
   kron_stage1_kernel<T><<<dim3(batch, (t1 + kTA - 1) / kTA, groups), kThreads, smem, st>>>(

@@ -10,8 +10,10 @@ kron_matmul  — rank-folded Kronecker chain ``x·(Σ_k ⊗_j F_jk)`` (the kron
                ``csrc/kron_matmul.cu``
 kron_logits  — fused Kronecker-head cross-entropy, forward and backward,
                CUDA C++ in ``csrc/kron_logits.cu``
-flash_attn   — split-KV paged decode read and its combine, CUDA C++ in
-               ``csrc/paged_attention.cu``
+flash_attn   — full-sequence flash attention (forward; the backward is the
+               oracle's VJP, as in the JAX package), CUDA C++ in
+               ``csrc/flash_attn.cu``; the split-KV paged decode read and
+               its combine, CUDA C++ in ``csrc/paged_attention.cu``
 common       — the plain torch math the kernels are held against
 build        — nvcc build of ``csrc/*.cu`` into ``build/`` and ctypes load
 

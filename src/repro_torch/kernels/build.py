@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``build/<name>-<hash>.so`` at the repository root, at first use, and
-loaded with ``ctypes``. The file name carries a hash of the source and the
-flags, so an edited source never loads a stale library. :func:`build_all`
+loaded with ``ctypes``. The file name carries a hash of the source, the
+headers it may include (``csrc/*.cuh``) and the flags, so an edited source
+or header never loads a stale library. :func:`build_all`
 starts one nvcc per source at once.
 """
 
@@ -42,6 +43,7 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

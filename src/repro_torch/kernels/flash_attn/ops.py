@@ -1,15 +1,25 @@
-"""Wrappers of the split-KV paged decode kernels (``csrc/paged_attention.cu``).
+"""Wrappers of the flash-attention kernels: the full-sequence forward
+(``csrc/flash_attn.cu``) and the split-KV paged decode read
+(``csrc/paged_attention.cu``).
 
-:func:`paged_attention_split` and :func:`combine_splits` route by the
-tensor (``kernels.kernel_route``): a CUDA tensor launches the CUDA kernel,
-a CPU tensor runs the plain version in ``ref.py``. ``launches`` counts the
-launches of each kernel and nothing else. :func:`paged_attention` is the
-decode read of ``serve/decode.py``: split and combine, or the gather
-oracle when the caller asks for ``use_kernel=False`` (as the JAX package's
-``ops.paged_attention`` does).
+:func:`flash_attention` goes through :class:`FlashAttention`, a
+``torch.autograd.Function`` routed by the tensor (``kernels.kernel_route``):
+on a CUDA tensor its forward launches the flash kernel, on a CPU tensor it
+runs :func:`~repro_torch.kernels.flash_attn.ref.attention_ref`. Its backward
+recomputes through ``attention_ref`` and takes that oracle's VJP on either
+route, as the JAX package's ``ops.flash_attention`` does.
 
-The wrappers never read ``lens`` on the host: the kernels stop at each
-slot's last valid page themselves, so a decode step pays no sync per layer.
+:func:`paged_attention_split` and :func:`combine_splits` route the same
+way: a CUDA tensor launches the CUDA kernel, a CPU tensor runs the plain
+version in ``ref.py``. :func:`paged_attention` is the decode read of
+``serve/decode.py``: split and combine, or the gather oracle when the
+caller asks for ``use_kernel=False`` (as the JAX package's
+``ops.paged_attention`` does). ``launches`` counts the launches of each
+kernel and nothing else.
+
+The paged wrappers never read ``lens`` on the host: the kernels stop at
+each slot's last valid page themselves, so a decode step pays no sync per
+layer.
 """
 
 from __future__ import annotations
@@ -20,19 +30,23 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import autotune, build, kernel_route
-from repro_torch.kernels.flash_attn.ref import (combine_splits_ref,
+from repro_torch.kernels.flash_attn.ref import (attention_ref, combine_splits_ref,
                                                 paged_attention_ref,
                                                 paged_attention_split_ref,
                                                 split_layout)
 
-__all__ = ["paged_attention", "paged_attention_split", "combine_splits",
-           "paged_attention_split_cuda", "combine_splits_cuda", "check_split_inputs",
-           "launches"]
+__all__ = ["flash_attention", "FlashAttention", "flash_attention_cuda",
+           "check_flash_inputs", "paged_attention", "paged_attention_split",
+           "combine_splits", "paged_attention_split_cuda", "combine_splits_cuda",
+           "check_split_inputs", "launches"]
 
-launches = {"paged_split": 0, "paged_combine": 0}
+launches = {"paged_split": 0, "paged_combine": 0, "flash_fwd": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _GROUPS = (1, 2, 4, 8)
+FLASH_HEAD_DIMS = (16, 32, 64, 96, 128)
+FLASH_BLOCK_Q = 64  # query rows per block of the flash kernel
 _lib: Optional[ctypes.CDLL] = None
+_flash_lib: Optional[ctypes.CDLL] = None
 
 
 def _load() -> ctypes.CDLL:
@@ -51,12 +65,127 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
-def _raise_on(rc: int, what: str) -> None:
+def _load_flash() -> ctypes.CDLL:
+    global _flash_lib
+    if _flash_lib is None:
+        lib = build.load("flash_attn")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.w2k_flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                      ctypes.c_float, p]
+        lib.w2k_flash_fwd.restype = i
+        lib.w2k_error_string.argtypes = [i]
+        lib.w2k_error_string.restype = ctypes.c_char_p
+        _flash_lib = lib
+    return _flash_lib
+
+
+def _raise_on(rc: int, what: str, lib: Optional[ctypes.CDLL] = None) -> None:
     if rc < 0:
         raise ValueError(f"{what}: the kernel does not take these shapes (code {rc})")
     if rc != 0:
+        lib = lib or _load()
         raise RuntimeError(f"{what} launch failed: "
-                           f"{_load().w2k_error_string(rc).decode()} (cudaError {rc})")
+                           f"{lib.w2k_error_string(rc).decode()} (cudaError {rc})")
+
+
+def check_flash_inputs(q, k, v, *, window: int = 0) -> None:
+    """What the flash kernel takes: contiguous, 16-byte aligned q (B, Sq, H,
+    D), k and v (B, Skv, KVH, D) of one dtype (fp32, bf16 or fp16) on one
+    device, D in ``FLASH_HEAD_DIMS`` for both keys and values, H a multiple
+    of KVH (any group size), Skv >= 1, at most 65,535 query tiles of 64
+    rows, ``window >= 0``; raises ``ValueError`` otherwise."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need q (B, Sq, H, D), k and v (B, Skv, KVH, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Bk, Skv, KVH, Dk = k.shape
+    if Bk != B or tuple(v.shape[:3]) != tuple(k.shape[:3]):
+        raise ValueError(f"batch and kv shapes disagree: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if Dk != D or v.shape[3] != D or D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dims q {D}, k {Dk}, v {v.shape[3]}: the kernel takes one "
+                         f"of {FLASH_HEAD_DIMS} for all three")
+    if KVH < 1 or H % KVH:
+        raise ValueError(f"{H} query heads over {KVH} kv heads: need a whole group size")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one of {list(_DTYPES)}, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if Skv < 1:
+        raise ValueError("need at least one key")
+    if -(-Sq // FLASH_BLOCK_Q) > 65535:
+        raise ValueError(f"Sq {Sq} gives more than 65,535 query tiles")
+    if int(window) != window or window < 0:
+        raise ValueError(f"window must be an int >= 0, got {window!r}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+    """Launch the flash kernel: q (B, Sq, H, D), k and v (B, Skv, KVH, D) ->
+    (B, Sq, H, D) in q's dtype, the function of
+    :func:`~repro_torch.kernels.flash_attn.ref.attention_ref`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
+    check_flash_inputs(q, k, v, window=window)
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _load_flash()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.w2k_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               _DTYPES[q.dtype], B, Sq, Skv, H, KVH, D, int(causal),
+                               int(window), D ** -0.5, stream)
+    _raise_on(rc, "flash_fwd", lib)
+    launches["flash_fwd"] += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Full-sequence GQA attention ``(q, k, v) -> out`` in q's dtype,
+    differentiable in q, k and v. The forward launches the flash kernel on
+    the kernel route and runs ``attention_ref`` otherwise; it saves q, k
+    and v. The backward is the VJP of ``attention_ref`` recomputed from
+    them on either route, which builds the (Sq, Skv) scores: that is the
+    reference's own design (JAX ``ops.flash_attention`` is a
+    ``custom_vjp`` whose backward is the oracle's VJP, and the JAX package
+    has no backward kernel for flash attention), not a fallback."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, on_kernel):
+        if on_kernel:
+            out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       causal=causal, window=window)
+        else:
+            out = attention_ref(q, k, v, causal=causal, window=window)
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attention_ref(*qkv, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    use_kernel: Optional[bool] = None):
+    """Full-sequence attention q (B, Sq, H, Dh), k and v (B, Skv, KVH, Dh)
+    -> (B, Sq, H, Dh) in q's dtype through :class:`FlashAttention`: the
+    flash kernel for CUDA q, ``attention_ref`` for CPU q or
+    ``use_kernel=False``."""
+    return FlashAttention.apply(q, k, v, causal, window, kernel_route(use_kernel, q))
 
 
 def check_split_inputs(q, k_pages, v_pages, ptab, lens) -> None:

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the split-KV paged decode read (port of the
-paged half of ``repro.kernels.flash_attn.ref``, plus the plain version of
-the split kernel's function).
+"""Plain PyTorch versions of the flash-attention kernels (port of
+``repro.kernels.flash_attn.ref``, plus the plain version of the split
+kernel's function): the full-sequence oracle :func:`attention_ref` and the
+split-KV paged decode read.
 
 The CPU route and the CPU tests run these; on the card ``chip_smoke.py``
-holds the CUDA kernels of ``csrc/paged_attention.cu`` against them.
+holds the CUDA kernels of ``csrc/flash_attn.cu`` and
+``csrc/paged_attention.cu`` against them.
 
 Pools are ``(P, page_size, KVH, D)``; ``ptab (B, NP)`` maps slot b's
 logical page j to a pool row; ``lens (B,)`` counts each slot's valid
@@ -14,10 +16,35 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG", "combine_splits_ref", "paged_attention_ref",
+__all__ = ["NEG", "attention_ref", "combine_splits_ref", "paged_attention_ref",
            "paged_attention_split_ref", "split_layout"]
 
 NEG = -1e30
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """The full-sequence oracle: q (B, Sq, H, Dh), k (B, Skv, KVH, Dh), v
+    (B, Skv, KVH, Dv) -> (B, Sq, H, Dv) in q's dtype. Query head h reads kv
+    head ``h // (H / KVH)``; query and key positions both count from 0.
+    Builds the full fp32 scores, masks them with NEG (``causal``: keep
+    ``kpos <= qpos``; ``window > 0``: keep ``kpos > qpos - window``) and
+    takes a softmax, so a row that sees no key averages every value."""
+    B, Sq, H, Dh = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qf = q.float().reshape(B, Sq, KVH, G, Dh) * (Dh ** -0.5)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qf, k.float())
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = valid & (kpos <= qpos)
+    if window > 0:
+        valid = valid & (kpos > qpos - window)
+    s = torch.where(valid, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bckd->bkgqd", p, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
 def split_layout(n_pages: int, kv_splits: int) -> tuple[int, int]:

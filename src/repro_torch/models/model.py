@@ -1,5 +1,5 @@
-"""Unified model API of the port: init / loss / cache / serve / chunked
-prefill (torch port of the LM branch of ``repro.models.model``).
+"""Unified model API of the port: init / loss / cache / serve / full-prompt
+and chunked prefill (torch port of the LM branch of ``repro.models.model``).
 
 Every entry point that creates tensors takes an explicit ``device``
 (default ``"cuda"``) and raises when the card is missing.
@@ -15,8 +15,8 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import cache as SC
 from repro_torch.serve import decode as D
 
-__all__ = ["init_params", "loss_fn", "init_cache", "serve_step_fn", "prefill_chunk_fn",
-           "param_count"]
+__all__ = ["init_params", "loss_fn", "init_cache", "serve_step_fn", "prefill_fn",
+           "prefill_chunk_fn", "param_count"]
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
@@ -59,6 +59,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, paged: bool = Fals
 def serve_step_fn(params: dict, cfg: ModelConfig, cache: dict, tokens: torch.Tensor):
     """One greedy-decodable step: tokens (B,) -> (logits (B, vocab), cache)."""
     return D.serve_step(params, cfg, cache, tokens)
+
+
+def prefill_fn(params: dict, cfg: ModelConfig, batch: dict):
+    """Full-prompt prefill: ``batch["tokens"]`` (B, S) in one full-sequence
+    forward, without autograd -> (the final-normed hidden state of the last
+    position (B, d), caches): a list with one ``{"k", "v"}`` (B, S, KVH, Dh)
+    per layer, after qk-norm and rope, in ``cfg.dtype``. On the card the
+    attention runs the flash kernel unless ``cfg.use_kernels`` is False."""
+    with torch.no_grad():
+        x, caches = T.forward(params, cfg, batch["tokens"], want_cache=True)
+    return x[:, -1], caches
 
 
 def prefill_chunk_fn(params: dict, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,

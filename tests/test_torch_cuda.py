@@ -40,6 +40,18 @@ within 2·lr per step (AdamW normalizes each update, so a near-zero gradient
 that differs in its last bits can move a parameter by up to lr either way)
 and 99.9% of them within 1e-5.
 
+The flash-attention forward (``csrc/flash_attn.cu``) against
+``attention_ref``: rtol 2e-4 + atol 2e-5 in fp32 (the same online softmax
+as the Pallas kernel, scores and sums in another order), 3e-2 in bf16 and
+fp16 (outputs rounded to 16 bits; the kernel also rounds each probability
+to 16 bits before the PV product, the oracle does not); in bf16 and fp16
+also each output row (one query and head) within 1e-2 of its norm of
+``attention_ref`` on the same values in fp32 (two roundings of 2^-9
+relative each, where a dropped or misplaced key tile moves a row by
+several per cent). The fp32 prefill through the kernel against
+``use_kernels=False``: atol 1e-4 + rtol 1e-5 on the last hidden state and
+the caches.
+
 The quantized serving legs (int8 and fp8 payloads with per-rank scales)
 take the tolerances of their fp32 legs: the kernels and the plain versions
 dequantize to the same floats (``float(q) * scale``) and then differ only
@@ -189,7 +201,8 @@ def test_paged_split_and_combine_kernels_match_plain(dev, kv_splits, dtype, B, H
     got = FA.paged_attention_split(*args, kv_splits=kv_splits)
     out = FA.combine_splits(*got)
     torch.cuda.synchronize()
-    assert FA.launches == {k: v + 1 for k, v in before.items()}
+    assert FA.launches == {**before, "paged_split": before["paged_split"] + 1,
+                           "paged_combine": before["paged_combine"] + 1}
     want = FA.paged_attention_split(*args, kv_splits=kv_splits, use_kernel=False)
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.isfinite(g).all()
@@ -307,18 +320,20 @@ def test_smoke_training_kernel_route_matches_plain(dev):
     for c in (cfg, dataclasses.replace(cfg, use_kernels=False)):
         state = with_params(MD.init_params(c, seed=0, device=dev))
         step = make_train_step(c, tcfg)
-        before = {**G.launches, **CE.launches}
+        before = {**G.launches, **CE.launches, "flash_fwd": FA.launches["flash_fwd"]}
         losses = []
         for i in range(3):
             batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dcfg, i).items()}
             state, metrics = step(state, batch)
             losses.append(metrics["loss"])
-        after = {**G.launches, **CE.launches}
+        after = {**G.launches, **CE.launches, "flash_fwd": FA.launches["flash_fwd"]}
         runs.append((torch.stack(losses), list(tree_leaves(state["params"])),
                      {k: after[k] - before[k] for k in after}))
     (l_k, p_k, n_k), (l_p, p_p, n_p) = runs
+    # flash: each layer's forward and its recompute in the backward
     assert n_k == {"kron_gather_fwd": 0, "kron_gather_fwd_stats": 3, "kron_gather_bwd": 3,
-                   "kron_gather_fwd_quant": 0, "kron_ce_fwd": 3, "kron_ce_bwd": 3}
+                   "kron_gather_fwd_quant": 0, "kron_ce_fwd": 3, "kron_ce_bwd": 3,
+                   "flash_fwd": 3 * 2 * cfg.num_layers}
     assert not any(n_p.values())
     torch.testing.assert_close(l_k, l_p, atol=1e-5, rtol=1e-4)
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_k, p_p)])
@@ -513,3 +528,105 @@ def test_smoke_quant_serving_kernel_route_matches_plain(dev, linear, mode):
             assert M.launches["kron_matmul_fwd"] == before[1]["kron_matmul_fwd"]
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
+             torch.bfloat16: dict(atol=3e-2, rtol=3e-2),
+             torch.float16: dict(atol=3e-2, rtol=3e-2)}
+FLASH_ROW_RTOL = 1e-2  # 16-bit rows against the fp32 oracle, relative to the row's norm
+# (Sq, Skv): equal and ragged, queries before and past the keys; the window
+# of 40 leaves the last rows of (150, 77) with no key (the mean of v)
+FLASH_LENGTHS = ((129, 129), (77, 150), (150, 77))
+FLASH_MASKS = {"causal": (True, 0), "window": (True, 40), "bidirectional": (False, 0)}
+
+
+def _qkv(dev, dtype, B, Sq, Skv, H, KVH, Dh, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, Sq, H, Dh), (B, Skv, KVH, Dh), (B, Skv, KVH, Dh))]
+
+
+def _assert_flash_close(got, q, k, v, causal=True, window=0):
+    want = FA.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[q.dtype])
+    if q.dtype != torch.float32:
+        want = FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+        row_err = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+        assert row_err.max().item() <= FLASH_ROW_RTOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", list(FLASH_MASKS))
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_flash_kernel_matches_attention_ref(dev, G, Dh, mask, dtype):
+    causal, window = FLASH_MASKS[mask]
+    for Sq, Skv in FLASH_LENGTHS:
+        q, k, v = _qkv(dev, dtype, 2, Sq, Skv, 2 * G, 2, Dh)
+        before = FA.launches["flash_fwd"]
+        got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert FA.launches["flash_fwd"] == before + 1
+        _assert_flash_close(got, q, k, v, causal, window)
+
+
+def test_flash_kernel_takes_fp16(dev):
+    q, k, v = _qkv(dev, torch.float16, 1, 100, 100, 16, 8, 128)
+    _assert_flash_close(FA.flash_attention_cuda(q, k, v), q, k, v)
+
+
+def test_flash_kernel_refuses_unsupported_shapes(dev):
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 16, 16, 4, 2, 64)
+    for bad in (
+        _qkv(dev, torch.bfloat16, 1, 16, 16, 4, 2, 80),  # head_dim 80
+        _qkv(dev, torch.bfloat16, 1, 16, 16, 4, 2, 48),  # head_dim 48
+        _qkv(dev, torch.bfloat16, 1, 16, 16, 6, 4, 64),  # 6 heads over 4 kv heads
+        (q, k, v[..., :32].contiguous()),  # Dv != Dh
+        (q, k.float(), v),  # mixed dtypes
+        (q.transpose(1, 2), k, v),  # not contiguous
+        (q, k[:, :0], v[:, :0]),  # no key
+    ):
+        with pytest.raises(ValueError):
+            FA.flash_attention_cuda(*bad)
+    with pytest.raises(ValueError):
+        FA.flash_attention_cuda(q, k, v, window=-1)
+
+
+@pytest.mark.parametrize("mask", list(FLASH_MASKS))
+def test_flash_autograd_routes_agree(dev, mask):
+    causal, window = FLASH_MASKS[mask]
+    g = torch.Generator(device=dev).manual_seed(3)
+    ct = torch.randn((2, 150, 8, 128), generator=g, device=dev)
+    runs = []
+    for use_kernel in (None, False):
+        qkv = [t.requires_grad_(True) for t in _qkv(dev, torch.float32, 2, 150, 150, 8, 4, 128)]
+        before = FA.launches["flash_fwd"]
+        out = FA.flash_attention(*qkv, causal=causal, window=window, use_kernel=use_kernel)
+        grads = torch.autograd.grad(out, qkv, ct)
+        assert FA.launches["flash_fwd"] == before + (use_kernel is None)
+        runs.append((out.detach(), grads))
+    (o_k, g_k), (o_p, g_p) = runs
+    torch.testing.assert_close(o_k, o_p, **FLASH_TOL[torch.float32])
+    for a, b in zip(g_k, g_p):  # both the oracle's VJP on the same saved inputs
+        assert torch.equal(a, b)
+
+
+def test_smoke_prefill_fn_kernel_route_matches_plain(dev):
+    cfg = get_smoke("qwen3-1.7b", dtype=torch.float32)
+    params = MD.init_params(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, dtype=torch.int32)
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, use_kernels=False)):
+        before = FA.launches["flash_fwd"]
+        outs.append(MD.prefill_fn(params, c, {"tokens": toks}))
+        assert FA.launches["flash_fwd"] - before == (cfg.num_layers if c.use_kernels is None
+                                                     else 0)
+    (x_k, c_k), (x_p, c_p) = outs
+    torch.testing.assert_close(x_k, x_p, atol=1e-4, rtol=1e-5)
+    assert len(c_k) == len(c_p) == cfg.num_layers
+    for a, b in zip(c_k, c_p):
+        for name in ("k", "v"):
+            assert a[name].shape == (2, 100, cfg.num_kv_heads, cfg.head_dim)
+            torch.testing.assert_close(a[name], b[name], atol=1e-4, rtol=1e-5)
