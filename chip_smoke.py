@@ -83,30 +83,33 @@ non-zero, printing no result, when anything is missing or any phase fails:
    (no fp32 leg launched), the stored bytes of the embedding, head and ket
    linears per mode, and the share of greedy tokens that agree with the
    fp32 run of the same weights (a report, not a gate);
-12. slice 6's kernel (run with the other kernel phases, before any
+12. slice 6's kernels (run with the other kernel phases, before any
    model): the flash-attention forward at qwen3-1.7b's widths (16 heads
-   over 8 kv heads, head_dim 128) against ``attention_ref`` at the
-   training shape (8 x 256 tokens, causal, bf16 and fp32), a window, a
-   bidirectional and an Sq != Skv case, and at the prefill shape (1 x
-   32,768 tokens, bf16, causal) against the model's plain chunked
-   attention (``attention_ref``'s scores would take 68.7 GB there); every
-   16-bit case also row by row against the fp32 oracle on the same values
-   (``attention_ref``, or the chunked attention at the prefill); each
-   timed beside its bound (the operations of the valid pairs only, at the
-   card's peak for the inputs' type: bf16 tensor cores for bf16, fp32
-   CUDA cores for fp32), the plain version and
+   over 8 kv heads, head_dim 128), ``flash_fwd_tc`` (the tensor-core
+   kernel) on every bf16 case and ``flash_fwd`` (the CUDA-core kernel) on
+   the fp32 one, against ``attention_ref`` at the training shape (8 x 256
+   tokens, causal, bf16 and fp32), a window, a bidirectional and an Sq !=
+   Skv case, and at the prefill shape (1 x 32,768 tokens, bf16, causal)
+   against the model's plain chunked attention (``attention_ref``'s scores
+   would take 68.7 GB there); every 16-bit case also row by row against
+   the fp32 oracle on the same values (``attention_ref``, or the chunked
+   attention at the prefill); each timed beside its bound (the operations
+   of the valid pairs only, at the card's peak for the inputs' type: bf16
+   tensor cores for bf16, fp32 CUDA cores for fp32), the plain version and
    ``F.scaled_dot_product_attention`` on the same tensors in (B, H, S, Dh)
    layout as a yardstick;
 13. slice 6's path at full width: the full qwen3-1.7b with seeded weights
    runs ``prefill_fn`` on 1 prompt of 32,768 tokens in bf16 (the repo's
    ``prefill_32k`` length, its batch cut from 32 to 1): launch counts (28
-   flash launches, one lookup), wall time and prompt tok/s, peak memory,
-   every cache's shape and finiteness, a profile of a second call; then an
-   fp32 ``prefill_fn`` at 1 x 4,096 through the kernels against
-   ``use_kernels=False`` (the last hidden state and every layer's
-   caches). The training paths of phases 7 and 8 count 56 flash
-   launches per step (28 forward, 28 in the per-layer recompute), and the
-   serving paths none;
+   ``flash_fwd_tc`` launches, one lookup), wall time and prompt tok/s,
+   peak memory, every cache's shape and finiteness, a profile of a second
+   call; then a bf16 ``prefill_fn`` at 1 x 4,096 through the kernels
+   against ``use_kernels=False``, row by row (the last hidden state and
+   every layer's caches), and an fp32 one (28 ``flash_fwd`` launches)
+   within atol / rtol. The bf16 training paths of phases 7 and 8 count 56
+   ``flash_fwd_tc`` launches per step (28 forward, 28 in the per-layer
+   recompute), their fp32 steps 56 ``flash_fwd``, and the serving paths
+   none;
 14. a JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Only the prefill's batch is cut (32 -> 1): every path runs the published
@@ -200,6 +203,24 @@ FLASH_CASES = (("train", 8, 256, 256, True, 0, "bfloat16"),
                ("Sq != Skv", 8, 200, 333, True, 0, "bfloat16"),
                ("prefill", 1, 32768, 32768, True, 0, "bfloat16"))
 PREFILL_LEN, PREFILL_F32_LEN = 32768, 4096
+# the bf16 prefill at 4,096 tokens through the kernels against
+# use_kernels=False, row by row (a row: the last hidden state, or one
+# token's k or v in one kv head), relative to the plain row's norm. Layer
+# 0's k and v come before any attention: they differ only where the
+# lookup's fp32 sums, in another order, round to another bf16. Each layer's
+# attention output differs between the routes by bf16 roundings (the
+# kernel keeps q * Dh^-0.5 in fp32 and rounds p and o; the chunked
+# attention rounds q * Dh^-0.5 to bf16 too), about 3e-3 of a row, and the
+# residual stream carries that through 27 more layers of bf16 matmuls and
+# adds (each rounding at 2^-9): a few 1e-3, up to about 1e-2 on the worst
+# rows. A dropped or misplaced key tile changes a layer's attention rows
+# by tens of per cent (8 / sqrt(row) at unit-normal values), and its next
+# layer's k and v by a large part of that: 5e-2 separates the two.
+PREFILL_BF16_LEN, PREFILL_BF16_ROW_RTOL = 4096, 5e-2
+# the two flash kernels' launch counters, and their symbols in a profile
+FLASH_KERNELS = ("flash_fwd", "flash_fwd_tc")
+FLASH_GROUPS = {"flash kernel (tensor cores)": ["flash_fwd_tc_kernel"],
+                "flash kernel (CUDA cores)": ["flash_fwd_kernel"]}
 # the fp32 prefill through the kernels against use_kernels=False, every
 # layer's caches: 28 random fp32 layers may grow the embedding's ~1e-6
 # difference and the attention's summation order (the card tests' smoke
@@ -364,8 +385,9 @@ def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
 
 def check_flash_kernels(torch, dev):
     """Phase 12: the flash-attention forward against its plain versions at
-    qwen3-1.7b's widths, timed beside its bound, the plain version and SDPA.
-    Returns the JSON row of the training shape."""
+    qwen3-1.7b's widths, timed beside its bound, the plain version and SDPA:
+    the tensor-core kernel on every bf16 case, the CUDA-core kernel on the
+    fp32 one. Returns the JSON rows of the training and prefill shapes."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -383,12 +405,16 @@ def check_flash_kernels(torch, dev):
         q = torch.randn((B, Sq, H, Dh), generator=gen, device=dev).to(dt)
         k = torch.randn((B, Skv, KVH, Dh), generator=gen, device=dev).to(dt)
         v = torch.randn((B, Skv, KVH, Dh), generator=gen, device=dev).to(dt)
-        log(f"[kernels] flash_fwd {name}: q ({B}, {Sq}, {H}, {Dh}), k, v ({B}, {Skv}, "
+        kern = FA.flash_route(dt, Dh)  # bf16: the tensor cores; fp32: the CUDA cores
+        log(f"[kernels] {kern} {name}: q ({B}, {Sq}, {H}, {Dh}), k, v ({B}, {Skv}, "
             f"{KVH}, {Dh}) {dtype}, causal {causal}, window {window}")
+        before = FA.launches[kern]
         got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        if FA.launches[kern] != before + 1:
+            fail(f"{kern} {name}: the call did not launch {kern}")
         if not torch.isfinite(got).all():
-            fail(f"flash_fwd {name}: non-finite output")
+            fail(f"{kern} {name}: non-finite output")
         big = name == "prefill"
         if big:  # the oracle's scores would take 68.7 GB here
             plain = lambda: A.flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
@@ -399,20 +425,20 @@ def check_flash_kernels(torch, dev):
             oracle32 = lambda: FA.attention_ref(q.float(), k.float(), v.float(),
                                                 causal=causal, window=window)
         err = max_err(torch, got.float(), plain().float(), FLASH_TOL[dtype],
-                      f"flash_fwd {name} vs {'the chunked attention' if big else 'attention_ref'}")
+                      f"{kern} {name} vs {'the chunked attention' if big else 'attention_ref'}")
         worst = None
         if dtype != "float32":
             want = oracle32()
             row = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
             worst, mid = row.max().item(), row.median().item()
             what = "the fp32 chunked attention" if big else "fp32 attention_ref"
-            log(f"  flash_fwd {name} vs {what} on the same values: max |diff| "
+            log(f"  {kern} {name} vs {what} on the same values: max |diff| "
                 f"{(got.float() - want).abs().max().item():.3e}, |o| median "
                 f"{want.abs().median().item():.3e}; per-row relative error max {worst:.3e}, "
                 f"median {mid:.3e} (limit {FLASH_ROW_RTOL:g}) "
                 f"{'ok' if worst <= FLASH_ROW_RTOL else 'DISAGREES'}")
             if not worst <= FLASH_ROW_RTOL:
-                fail(f"flash_fwd {name}: a row is {worst:.3e} off the fp32 oracle")
+                fail(f"{kern} {name}: a row is {worst:.3e} off the fp32 oracle")
             del want, row
         # the yardstick on the same tensors in (B, H, S, Dh) layout
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -433,7 +459,7 @@ def check_flash_kernels(torch, dev):
         b_ms, b_by = bound(moved, flops,
                            PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS)
         results.append({
-            "name": "flash_fwd", "route": "cuda",
+            "name": kern, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/flash_attn.py:27",
             "shape": f"{name}: q ({B}, {Sq}, {H}, {Dh}), kv ({B}, {Skv}, {KVH}, {Dh}) "
@@ -445,7 +471,7 @@ def check_flash_kernels(torch, dev):
             "plain_ms": time_ms(torch, plain, flush, iters=3 if big else 20,
                                 warmup=1 if big else 3),
             "bound_ms": b_ms, "bound_by": b_by,
-            # the same work on the fp32 CUDA cores, where this kernel computes
+            # the same work on the fp32 CUDA cores, where the fp32 kernel computes
             "bound_cuda_cores_ms": bound(moved, flops)[0],
             "library_ms": time_ms(torch, sdpa, flush, iters=10 if big else 50),
             "library": "F.scaled_dot_product_attention on the same tensors in (B, H, S, "
@@ -458,11 +484,13 @@ def check_flash_kernels(torch, dev):
     del scratch
     torch.cuda.empty_cache()
     for e in results:
-        log(f"  flash_fwd {e['shape']:62s} kernel {e['ms']:.4f} ms  bound "
+        log(f"  {e['name']:12s} {e['shape']:62s} kernel {e['ms']:.4f} ms  bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_by']}; on the fp32 CUDA cores "
             f"{e['bound_cuda_cores_ms']:.4f} ms)  plain ({e['plain']}) "
             f"{e['plain_ms']:.4f} ms  sdpa {e['library_ms']:.4f} ms")
-    return results[:1]
+    # the JSON line: each kernel at the training shape, and the tensor-core
+    # kernel at the prefill shape
+    return [e for e in results if e["shape"].startswith(("train", "prefill"))]
 
 
 def reset_counts() -> None:
@@ -575,7 +603,7 @@ def drive_main_path(torch, dev, params, quant: str = "none", steps: int = NEW_TO
         t_decode = time.perf_counter() - t0
         launches = {**{k: G.launches[k] for k in ("kron_gather_fwd", "kron_gather_fwd_quant")},
                     **{k: M.launches[k] for k in ("kron_matmul_fwd", "kron_matmul_fwd_quant")},
-                    "flash_fwd": FA.launches["flash_fwd"]}
+                    **{k: FA.launches[k] for k in FLASH_KERNELS}}
 
     n_chunks = PROMPT_LEN // C
     calls = n_chunks + steps  # one launch of each leg per prefill chunk and per step
@@ -766,7 +794,7 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
                 **{k: M.launches[k] for k in ("kron_matmul_fwd", "kron_matmul_fwd_quant")},
                 "paged_split": FA.launches["paged_split"],
                 "paged_combine": FA.launches["paged_combine"],
-                "flash_fwd": FA.launches["flash_fwd"]}
+                **{k: FA.launches[k] for k in FLASH_KERNELS}}
     st = eng.stats()
     if eng.prefix_cache is not None:  # at drain only the cache holds pages
         eng.prefix_cache.evict(len(eng.prefix_cache))
@@ -787,7 +815,8 @@ def run_engine(torch, dev, cfg, params, prompts, what, **kw):
     expected = {"kron_gather_fwd": 0, "kron_gather_fwd_quant": 0, "kron_matmul_fwd": 0,
                 "kron_matmul_fwd_quant": 0,
                 "paged_split": cfg.num_layers * st["decode_ticks"],
-                "paged_combine": cfg.num_layers * st["decode_ticks"], "flash_fwd": 0}
+                "paged_combine": cfg.num_layers * st["decode_ticks"], "flash_fwd": 0,
+                "flash_fwd_tc": 0}
     expected[f"kron_gather_fwd{leg}"] = expected[f"kron_matmul_fwd{leg}"] = st["ticks"]
     log(f"[engine {what}] launches {launches} (expected {expected})")
     if launches != expected:
@@ -1108,7 +1137,7 @@ def drive_training(torch, dev, cfg, tag: str):
         log(f"[{tag}] step {i}: loss {losses[-1]:.4f}, grad norm {gnorms[-1]:.4f}, "
             f"{walls[-1]:.1f} ms")
     launches = {**G.launches, **CE.launches, **M.launches,
-                "flash_fwd": FA.launches["flash_fwd"]}
+                **{k: FA.launches[k] for k in FLASH_KERNELS}}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # a ket layer runs 7 projections forward, again in its recompute, and
     # one backward each
@@ -1117,10 +1146,12 @@ def drive_training(torch, dev, cfg, tag: str):
     expected = {"kron_gather_fwd": 0, "kron_gather_fwd_stats": S, "kron_gather_bwd": S,
                 "kron_gather_fwd_quant": 0, "kron_ce_fwd": S, "kron_ce_bwd": S,
                 "kron_matmul_fwd": 2 * ket * S, "kron_matmul_bwd": ket * S,
-                "kron_matmul_fwd_quant": 0, "flash_fwd": 2 * cfg.num_layers * S}
+                "kron_matmul_fwd_quant": 0, "flash_fwd": 0,
+                "flash_fwd_tc": 2 * cfg.num_layers * S}
     log(f"[{tag}] launches {launches} (expected {expected}: one per training leg per "
         f"step; per ket projection per step two forwards and one backward; per layer "
-        f"per step two flash forwards, the second in the recompute)")
+        f"per step two bf16 flash forwards on the tensor cores, the second in the "
+        f"recompute)")
     if launches != expected:
         fail(f"{tag}: launches {launches}, expected {expected}")
     if not all(math.isfinite(v) for v in losses + gnorms):
@@ -1132,7 +1163,7 @@ def drive_training(torch, dev, cfg, tag: str):
         f"{steady:.1f} ms over steps 1-{TRAIN_STEPS - 1} ({TRAIN_TOKENS / steady * 1e3:.0f} "
         f"tokens/s); peak device memory {peak:.2f} GiB")
     profile_call(torch, f"one {tag} step", lambda: step_fn(state, batches[TRAIN_STEPS]),
-                 steady, groups={"flash kernel": ["flash_fwd_kernel"],
+                 steady, groups={**FLASH_GROUPS,
                                  "kron_matmul kernels": ["kron_stage", "kron_gemm",
                                                          "kron_sum_parts"],
                                  "CE kernels": ["ce_fwd_kernel", "ce_bwd_kernel",
@@ -1149,6 +1180,7 @@ def check_train_step_fp32(torch, dev, state, cfg, plain, tag: str):
     batch: the loss, the embedding, head and layer-0 gradients, and layer
     0 after one AdamW update."""
     from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.kernels.flash_attn import ops as FA
     from repro_torch.models import model as MD
     from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, global_norm,
                                          tree_leaves)
@@ -1165,8 +1197,14 @@ def check_train_step_fp32(torch, dev, state, cfg, plain, tag: str):
     out = {}
     for name, c in (("kernels", cfg32), ("plain", dataclasses.replace(plain,
                                                                       dtype=torch.float32))):
+        before = {k: FA.launches[k] for k in FLASH_KERNELS}
         loss, _ = MD.loss_fn(params, c, batch)
         grads = torch.autograd.grad(loss, leaves)
+        ran = {k: FA.launches[k] - before[k] for k in FLASH_KERNELS}
+        # fp32: the CUDA-core kernel, each layer's forward and its recompute
+        want = {"flash_fwd": 2 * cfg.num_layers if name == "kernels" else 0, "flash_fwd_tc": 0}
+        if ran != want:
+            fail(f"{tag}: the fp32 step ({name}) launched {ran}, expected {want}")
         gnorm = global_norm(grads)
         # one AdamW step of layer 0 from a fresh optimizer state, scaled by
         # this route's global norm, as the full step would apply it
@@ -1532,7 +1570,7 @@ def drive_ket_serving(torch, dev, quant: str = "none"):
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
         launches = {**{k: G.launches[k] for k in ("kron_gather_fwd", "kron_gather_fwd_quant")},
-                    **M.launches, "flash_fwd": FA.launches["flash_fwd"]}
+                    **M.launches, **{k: FA.launches[k] for k in FLASH_KERNELS}}
     n_chunks = PROMPT_LEN // C
     calls = n_chunks + KET_DECODE_STEPS
     leg = "" if quant == "none" else "_quant"
@@ -1577,9 +1615,10 @@ def drive_ket_serving(torch, dev, quant: str = "none"):
 
 def drive_prefill(torch, dev):
     """Phase 13: slice 6's path, ``prefill_fn`` on one 32,768-token prompt of
-    the full config (bf16), launch counts checked, timed, profiled; then an
-    fp32 prefill at 4,096 tokens through the kernels against
-    ``use_kernels=False``. Returns the launches of the 32,768-token call."""
+    the full config (bf16), launch counts checked, timed, profiled; then a
+    bf16 and an fp32 prefill at 4,096 tokens through the kernels against
+    ``use_kernels=False``. Returns the launches of the 32,768-token call and
+    of the fp32 one."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import ops as FA
     from repro_torch.kernels.kron_gather import ops as G
@@ -1607,9 +1646,9 @@ def drive_prefill(torch, dev):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = {k: 0 for k in launches}
     expected["kron_gather_fwd"] = 1  # the embedding lookup, no grad: the serving leg
-    expected["flash_fwd"] = cfg.num_layers
+    expected["flash_fwd_tc"] = cfg.num_layers
     log(f"[prefill] launches {launches} (expected {expected}: one lookup, one flash "
-        f"forward per layer)")
+        f"forward per layer on the tensor cores)")
     if launches != expected:
         fail(f"prefill: launches {launches}, expected {expected}")
     shape = (1, PREFILL_LEN, cfg.num_kv_heads, cfg.head_dim)
@@ -1631,21 +1670,59 @@ def drive_prefill(torch, dev):
     with torch.inference_mode():
         profile_call(torch, f"one {PREFILL_LEN:,}-token prefill_fn", lambda: MD.prefill_fn(
             params, cfg, {"tokens": tokens}), wall * 1e3,
-            groups={"flash kernel": ["flash_fwd_kernel"], "kron_gather kernels":
+            groups={**FLASH_GROUPS, "kron_gather kernels":
                     ["kron_gather2"], "GEMMs": ["gemm", "nvjet", "xmma", "cutlass"],
                     "elementwise and copies": ["elementwise", "copy", "reduce"]})
     torch.cuda.empty_cache()
 
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    short = tokens[:, :PREFILL_F32_LEN]
-    outs = []
-    with torch.inference_mode():
-        for c in (cfg32, dataclasses.replace(cfg32, use_kernels=False)):
-            before = FA.launches["flash_fwd"]
-            outs.append(MD.prefill_fn(params, c, {"tokens": short}))
-            ran = FA.launches["flash_fwd"] - before
-            if ran != (cfg.num_layers if c.use_kernels is None else 0):
-                fail(f"fp32 prefill (use_kernels={c.use_kernels}) launched flash {ran} times")
+    def both_routes(c, n):
+        """prefill_fn of tokens[:, :n] through the kernels and through
+        use_kernels=False, with the flash launches of each."""
+        outs, ran = [], []
+        with torch.inference_mode():
+            for route in (c, dataclasses.replace(c, use_kernels=False)):
+                before = {k: FA.launches[k] for k in FLASH_KERNELS}
+                outs.append(MD.prefill_fn(params, route, {"tokens": tokens[:, :n]}))
+                ran.append({k: FA.launches[k] - before[k] for k in FLASH_KERNELS})
+        return outs, ran
+
+    # bf16 at 4,096 tokens, row by row
+    outs, ran = both_routes(cfg, PREFILL_BF16_LEN)
+    want = [{"flash_fwd": 0, "flash_fwd_tc": cfg.num_layers}, dict.fromkeys(FLASH_KERNELS, 0)]
+    if ran != want:
+        fail(f"bf16 prefill at {PREFILL_BF16_LEN}: flash launches {ran}, expected {want}")
+    (xk, ck), (xp, cp) = outs
+    rows = {"last hidden state": (xk, xp)}
+    for name in ("k", "v"):
+        rows.update({f"layer {i} {name}": (ck[i][name], cp[i][name])
+                     for i in range(cfg.num_layers)})
+    worst, mids = {}, []
+    for what, (a, b) in rows.items():
+        rel = (a.float() - b.float()).norm(dim=-1) / b.float().norm(dim=-1).clamp_min(1e-30)
+        worst[what] = rel.max().item()
+        mids.append(rel.flatten())
+    bad = max(worst, key=worst.get)
+    mid = torch.cat(mids).median().item()
+    log(f"  bf16 prefill at {PREFILL_BF16_LEN} tokens, kernel route vs use_kernels=False, "
+        f"per-row relative error: last hidden state {worst['last hidden state']:.3e}, "
+        f"layer 1 k {worst['layer 1 k']:.3e} v {worst['layer 1 v']:.3e}, layer "
+        f"{cfg.num_layers - 1} k {worst[f'layer {cfg.num_layers - 1} k']:.3e} v "
+        f"{worst[f'layer {cfg.num_layers - 1} v']:.3e}; worst {worst[bad]:.3e} ({bad}), "
+        f"median over every row {mid:.3e} (limit {PREFILL_BF16_ROW_RTOL:g}) "
+        f"{'ok' if worst[bad] <= PREFILL_BF16_ROW_RTOL else 'DISAGREES'}")
+    log("  bf16 prefill worst row per layer (k, v): " + ", ".join(
+        f"{i}: {worst[f'layer {i} k']:.1e}/{worst[f'layer {i} v']:.1e}"
+        for i in range(cfg.num_layers)))
+    if not worst[bad] <= PREFILL_BF16_ROW_RTOL:
+        fail(f"bf16 prefill at {PREFILL_BF16_LEN} tokens: {bad} is {worst[bad]:.3e} off "
+             f"use_kernels=False")
+    del outs, ck, cp, xk, xp, rows, mids
+    torch.cuda.empty_cache()
+
+    outs, ran = both_routes(dataclasses.replace(cfg, dtype=torch.float32), PREFILL_F32_LEN)
+    want = [{"flash_fwd": cfg.num_layers, "flash_fwd_tc": 0}, dict.fromkeys(FLASH_KERNELS, 0)]
+    if ran != want:
+        fail(f"fp32 prefill at {PREFILL_F32_LEN}: flash launches {ran}, expected {want}")
     (xk, ck), (xp, cp) = outs
     pairs = [("last hidden state", xk, xp)] + [
         (f"layer {i} {name}", ck[i][name], cp[i][name])
@@ -1664,7 +1741,33 @@ def drive_prefill(torch, dev):
         f"({worst}) ok")
     del outs, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, ran[0]
+
+
+def log_flash_build(report: str) -> None:
+    """What nvcc's -Xptxas -v says of each flash kernel instance: registers
+    at launch and spill bytes. The tensor-core kernel launches 384 threads
+    with the registers ptxas gives it; setmaxnreg then takes the producer
+    warpgroup to 24 and each consumer warpgroup to 240. Its shared memory
+    is all dynamic: the q tile and two (K, V) stages of 128 rows (5 x 128 x
+    Dh x 2 bytes), the barriers and 1,024 bytes of alignment."""
+    import re
+
+    entry = None
+    for line in report.splitlines():
+        m = re.search(r"(flash_fwd(?:_tc)?_kernel)I(?:\d+(\w+?))?Li(\d+)E", line)
+        if "Compiling entry function" in line and m:
+            entry = f"{m.group(1)}<{m.group(2) or 'float'}, {m.group(3)}>"
+        elif entry and "spill" in line:
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif entry and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            d = int(entry.split(", ")[1][:-1])
+            what = (f"{regs} registers at launch (384 threads; setmaxnreg: producer 24, "
+                    f"consumers 240), dynamic shared memory {5 * 128 * d * 2 + 40 + 1024:,} B"
+                    if "_tc_" in entry else f"{regs} registers (128 threads, 2 blocks per SM)")
+            log(f"  flash_attn: {entry}: {what}, {spill} spill bytes")
+            entry = None
 
 
 def agree(what: str, got, want) -> None:
@@ -1697,13 +1800,16 @@ def main() -> None:
     log(f"[env] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    reports = build.build_all(["kron_gather", "kron_matmul", "paged_attention",
-                               "kron_logits", "flash_attn"])
+    # flash_attn first: its compile time, the longest, is then its own
+    reports = build.build_all(["flash_attn", "kron_gather", "kron_matmul", "paged_attention",
+                               "kron_logits"])
     log(f"[env] kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for name, out in reports.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if line.startswith("nvcc ") or (name != "flash_attn" and (
+                    "registers" in line or "spill" in line)):
                 log(f"  {name}: {line.strip()}")
+    log_flash_build(reports["flash_attn"])  # its instances, named
 
     kernels = (check_kernels(torch, dev) + check_paged_kernels(torch, dev)
                + check_training_kernels(torch, dev) + check_ket_kernels(torch, dev)
@@ -1737,7 +1843,7 @@ def main() -> None:
     _, ket_toks = drive_ket_serving(torch, dev)  # slice 4's serving
     ket_quant_launches, ket_quant_toks = drive_ket_serving(torch, dev, quant="int8")
     agree("ket serving, int8", ket_quant_toks.T, ket_toks.T)
-    prefill_launches = drive_prefill(torch, dev)  # slice 6's path
+    prefill_launches, prefill_f32_launches = drive_prefill(torch, dev)  # slice 6's path
     log(f"[quant] launches of the quantized legs: engine run (a) int8 "
         f"{quant_launches}; raw steps fp8 {fp8_launches}; ket serving int8 "
         f"{ket_quant_launches}")
@@ -1749,11 +1855,11 @@ def main() -> None:
                "kron_matmul_bwd": ket_launches,
                "kron_gather_fwd_quant": quant_launches,
                "kron_matmul_fwd_quant": quant_launches,
-               "flash_fwd": train_launches}
+               "flash_fwd_tc": train_launches, "flash_fwd": prefill_f32_launches}
     for e in kernels:
         e["launches"] = path_of[e["name"]][e["name"]]
-        if e["name"] == "flash_fwd":  # its other path: one 32,768-token prefill_fn
-            e["launches_prefill"] = prefill_launches["flash_fwd"]
+        if e["shape"].startswith("prefill"):  # one 32,768-token prefill_fn
+            e["launches"] = prefill_launches[e["name"]]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

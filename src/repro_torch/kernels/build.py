@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -49,8 +50,8 @@ def _target(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start nvcc for one source; returns ``(proc, tmp, target)`` or None
-    when the library is already built."""
+    """Start nvcc for one source; returns ``(proc, tmp, target, t0)`` or
+    None when the library is already built."""
     target = _target(name)
     if target.exists():
         return None
@@ -59,24 +60,28 @@ def _start(name: str):
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
-    return proc, tmp, target
+    return proc, tmp, target, time.perf_counter()
 
 
 def _finish(name: str, started) -> str:
     if started is None:
         return ""
-    proc, tmp, target = started
+    proc, tmp, target, t0 = started
     out, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu (rc {proc.returncode}):\n{out}")
     os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
-    return out
+    return f"nvcc csrc/{name}.cu: {seconds:.1f} s\n{out}"
 
 
 def build_all(names) -> dict[str, str]:
-    """Compile every named source in parallel (one nvcc each); returns the
-    compiler's output (register / shared-memory report) per name."""
+    """Compile every named source in parallel (one nvcc each); returns, per
+    name, its compile time and the compiler's output (register /
+    shared-memory report). The sources are waited for in the order given,
+    so the first one's time is its own and a later one's may include the
+    wait for those before it."""
     with _lock:
         started = {n: _start(n) for n in names}
         return {n: _finish(n, s) for n, s in started.items()}

@@ -4,10 +4,17 @@
 
 :func:`flash_attention` goes through :class:`FlashAttention`, a
 ``torch.autograd.Function`` routed by the tensor (``kernels.kernel_route``):
-on a CUDA tensor its forward launches the flash kernel, on a CPU tensor it
+on a CUDA tensor its forward launches a flash kernel, on a CPU tensor it
 runs :func:`~repro_torch.kernels.flash_attn.ref.attention_ref`. Its backward
 recomputes through ``attention_ref`` and takes that oracle's VJP on either
 route, as the JAX package's ``ops.flash_attention`` does.
+
+The full-sequence forward has two kernels, chosen from (dtype, head_dim)
+by one static table, :data:`FLASH_TC_ROUTES`, before the launch:
+``flash_fwd_tc`` (bf16 and fp16 on the tensor cores, 128 query rows a
+block) and ``flash_fwd`` (fp32 on the CUDA cores, 64 rows a block: tensor
+cores would compute fp32 in TF32). Neither falls back on the other: a
+failed build or launch raises.
 
 :func:`paged_attention_split` and :func:`combine_splits` route the same
 way: a CUDA tensor launches the CUDA kernel, a CPU tensor runs the plain
@@ -36,15 +43,19 @@ from repro_torch.kernels.flash_attn.ref import (attention_ref, combine_splits_re
                                                 split_layout)
 
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_cuda",
-           "check_flash_inputs", "paged_attention", "paged_attention_split",
-           "combine_splits", "paged_attention_split_cuda", "combine_splits_cuda",
-           "check_split_inputs", "launches"]
+           "check_flash_inputs", "flash_route", "FLASH_TC_ROUTES", "paged_attention",
+           "paged_attention_split", "combine_splits", "paged_attention_split_cuda",
+           "combine_splits_cuda", "check_split_inputs", "launches"]
 
-launches = {"paged_split": 0, "paged_combine": 0, "flash_fwd": 0}
+launches = {"paged_split": 0, "paged_combine": 0, "flash_fwd": 0, "flash_fwd_tc": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _GROUPS = (1, 2, 4, 8)
 FLASH_HEAD_DIMS = (16, 32, 64, 96, 128)
-FLASH_BLOCK_Q = 64  # query rows per block of the flash kernel
+# (dtype, head_dim) that the tensor-core kernel takes; every other
+# combination the flash wrappers accept runs the CUDA-core kernel
+FLASH_TC_ROUTES = frozenset((dt, d) for dt in (torch.bfloat16, torch.float16)
+                            for d in FLASH_HEAD_DIMS)
+FLASH_BLOCK_Q = {"flash_fwd": 64, "flash_fwd_tc": 128}  # query rows per block
 _lib: Optional[ctypes.CDLL] = None
 _flash_lib: Optional[ctypes.CDLL] = None
 
@@ -70,9 +81,9 @@ def _load_flash() -> ctypes.CDLL:
     if _flash_lib is None:
         lib = build.load("flash_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.w2k_flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
-                                      ctypes.c_float, p]
-        lib.w2k_flash_fwd.restype = i
+        for fn in (lib.w2k_flash_fwd, lib.w2k_flash_fwd_tc):
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+            fn.restype = i
         lib.w2k_error_string.argtypes = [i]
         lib.w2k_error_string.restype = ctypes.c_char_p
         _flash_lib = lib
@@ -88,12 +99,19 @@ def _raise_on(rc: int, what: str, lib: Optional[ctypes.CDLL] = None) -> None:
                            f"{lib.w2k_error_string(rc).decode()} (cudaError {rc})")
 
 
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The flash kernel that takes (dtype, head_dim): ``"flash_fwd_tc"`` for
+    the pairs in :data:`FLASH_TC_ROUTES`, ``"flash_fwd"`` otherwise."""
+    return "flash_fwd_tc" if (dtype, head_dim) in FLASH_TC_ROUTES else "flash_fwd"
+
+
 def check_flash_inputs(q, k, v, *, window: int = 0) -> None:
-    """What the flash kernel takes: contiguous, 16-byte aligned q (B, Sq, H,
+    """What the flash kernels take: contiguous, 16-byte aligned q (B, Sq, H,
     D), k and v (B, Skv, KVH, D) of one dtype (fp32, bf16 or fp16) on one
     device, D in ``FLASH_HEAD_DIMS`` for both keys and values, H a multiple
-    of KVH (any group size), Skv >= 1, at most 65,535 query tiles of 64
-    rows, ``window >= 0``; raises ``ValueError`` otherwise."""
+    of KVH (any group size), Skv >= 1, at most 65,535 query tiles of the
+    route's block height, ``window >= 0``; raises ``ValueError``
+    otherwise."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"need q (B, Sq, H, D), k and v (B, Skv, KVH, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -112,8 +130,9 @@ def check_flash_inputs(q, k, v, *, window: int = 0) -> None:
                          f"{k.dtype}, {v.dtype}")
     if Skv < 1:
         raise ValueError("need at least one key")
-    if -(-Sq // FLASH_BLOCK_Q) > 65535:
-        raise ValueError(f"Sq {Sq} gives more than 65,535 query tiles")
+    block_q = FLASH_BLOCK_Q[flash_route(q.dtype, D)]
+    if -(-Sq // block_q) > 65535:
+        raise ValueError(f"Sq {Sq} gives more than 65,535 query tiles of {block_q} rows")
     if int(window) != window or window < 0:
         raise ValueError(f"window must be an int >= 0, got {window!r}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -126,8 +145,8 @@ def check_flash_inputs(q, k, v, *, window: int = 0) -> None:
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the flash kernel: q (B, Sq, H, D), k and v (B, Skv, KVH, D) ->
-    (B, Sq, H, D) in q's dtype, the function of
+    """Launch the flash kernel of :func:`flash_route`: q (B, Sq, H, D), k and
+    v (B, Skv, KVH, D) -> (B, Sq, H, D) in q's dtype, the function of
     :func:`~repro_torch.kernels.flash_attn.ref.attention_ref`."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
@@ -137,14 +156,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    route = flash_route(q.dtype, D)
     lib = _load_flash()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.w2k_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               _DTYPES[q.dtype], B, Sq, Skv, H, KVH, D, int(causal),
-                               int(window), D ** -0.5, stream)
-    _raise_on(rc, "flash_fwd", lib)
-    launches["flash_fwd"] += 1
+        rc = getattr(lib, f"w2k_{route}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], B,
+            Sq, Skv, H, KVH, D, int(causal), int(window), D ** -0.5, stream)
+    _raise_on(rc, route, lib)
+    launches[route] += 1
     return out
 
 

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the flash-attention kernels (port of
-``repro.kernels.flash_attn.ref``, plus the plain version of the split
-kernel's function): the full-sequence oracle :func:`attention_ref` and the
-split-KV paged decode read.
+``repro.kernels.flash_attn.ref``, plus the plain versions of the tensor-core
+kernel's tile walk and of the split kernel's function): the full-sequence
+oracle :func:`attention_ref`, :func:`flash_tiles_ref` and the split-KV paged
+decode read.
 
 The CPU route and the CPU tests run these; on the card ``chip_smoke.py``
 holds the CUDA kernels of ``csrc/flash_attn.cu`` and
@@ -16,10 +17,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG", "attention_ref", "combine_splits_ref", "paged_attention_ref",
-           "paged_attention_split_ref", "split_layout"]
+__all__ = ["NEG", "LOG2E", "attention_ref", "flash_tiles_ref", "flash_kv_tiles",
+           "combine_splits_ref", "paged_attention_ref", "paged_attention_split_ref",
+           "split_layout"]
 
 NEG = -1e30
+LOG2E = 1.4426950408889634
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
@@ -45,6 +48,68 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bckd->bkgqd", p, v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def flash_kv_tiles(q0: int, Sq: int, Skv: int, causal: bool, window: int, block_q: int = 128,
+                   block_k: int = 128) -> tuple[int, int]:
+    """The key tiles ``[lo, hi)`` that the block of query rows ``[q0, q0 +
+    block_q)`` walks (``kv_tiles`` of ``csrc/flash_attn.cu``): from the
+    window's first tile to the causal diagonal, or every tile when the
+    block's last row sees no key at all."""
+    q_last = min(q0 + block_q, Sq) - 1
+    lo, hi = 0, -(-Skv // block_k)
+    if not (window > 0 and q_last - window + 1 > Skv - 1):
+        if causal:
+            hi = min(q_last, Skv - 1) // block_k + 1
+        if window > 0:
+            lo = max(0, q0 - window + 1) // block_k
+    return lo, hi
+
+
+def flash_tiles_ref(q, k, v, *, causal: bool = True, window: int = 0, block_q: int = 128,
+                    block_k: int = 128):
+    """The tensor-core flash kernel's algorithm, tile by tile: q (B, Sq, H,
+    Dh), k (B, Skv, KVH, Dh), v (B, Skv, KVH, Dv) -> (B, Sq, H, Dv) in q's
+    dtype. Each block of ``block_q`` query rows walks the key tiles of
+    :func:`flash_kv_tiles` with an online softmax in base 2: the fp32 dot
+    times ``fp32(Dh^-0.5) * fp32(log2 e)`` (the scale after the product),
+    masked with NEG (keys past Skv are not in a tile, as if they scored
+    -inf), ``p = exp2(s - m)`` added to l unrounded and rounded to v's
+    dtype for the PV product, and ``O / max(l, 1e-30)`` at the end."""
+    B, Sq, H, Dh = q.shape
+    Skv, KVH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KVH
+    scale = (torch.tensor(Dh ** -0.5, dtype=torch.float32)
+             * torch.tensor(LOG2E, dtype=torch.float32)).item()
+    kf, out = k.float(), torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    for q0 in range(0, Sq, block_q):
+        rows = min(block_q, Sq - q0)
+        qb = q[:, q0:q0 + rows].float().reshape(B, rows, KVH, G, Dh)
+        qpos = torch.arange(q0, q0 + rows, device=q.device)[:, None]
+        m = torch.full((B, KVH, G, rows), NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros((B, KVH, G, rows, Dv), dtype=torch.float32, device=q.device)
+        lo, hi = flash_kv_tiles(q0, Sq, Skv, causal, window, block_q, block_k)
+        for t in range(lo, hi):
+            k0, k1 = t * block_k, min((t + 1) * block_k, Skv)
+            s = torch.einsum("bqkgd,bnkd->bkgqn", qb, kf[:, k0:k1]) * scale
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            valid = torch.ones((rows, k1 - k0), dtype=torch.bool, device=q.device)
+            if causal:
+                valid = valid & (kpos <= qpos)
+            if window > 0:
+                valid = valid & (kpos > qpos - window)
+            s = torch.where(valid, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp2(s - m_new[..., None])
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum("bkgqn,bnkd->bkgqd", p.to(v.dtype).float(),
+                                                   v[:, k0:k1].float())
+            m = m_new
+        o = o / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q0 + rows] = o.permute(0, 3, 1, 2, 4).reshape(B, rows, H, Dv).to(q.dtype)
+    return out
 
 
 def split_layout(n_pages: int, kv_splits: int) -> tuple[int, int]:

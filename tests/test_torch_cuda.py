@@ -40,17 +40,23 @@ within 2·lr per step (AdamW normalizes each update, so a near-zero gradient
 that differs in its last bits can move a parameter by up to lr either way)
 and 99.9% of them within 1e-5.
 
-The flash-attention forward (``csrc/flash_attn.cu``) against
-``attention_ref``: rtol 2e-4 + atol 2e-5 in fp32 (the same online softmax
-as the Pallas kernel, scores and sums in another order), 3e-2 in bf16 and
-fp16 (outputs rounded to 16 bits; the kernel also rounds each probability
-to 16 bits before the PV product, the oracle does not); in bf16 and fp16
-also each output row (one query and head) within 1e-2 of its norm of
+The flash-attention forward (``csrc/flash_attn.cu``: the tensor-core
+kernel for bf16 and fp16, the CUDA-core kernel for fp32, by the wrapper's
+static route table, each counted on its own) against ``attention_ref``:
+rtol 2e-4 + atol 2e-5 in fp32 (the same online softmax as the Pallas
+kernel, scores and sums in another order), 3e-2 in bf16 and fp16 (outputs
+rounded to 16 bits; the kernel also rounds each probability to 16 bits
+before the PV product, the oracle does not); in bf16 and fp16 also each
+output row (one query and head) within 1e-2 of its norm of
 ``attention_ref`` on the same values in fp32 (two roundings of 2^-9
 relative each, where a dropped or misplaced key tile moves a row by
-several per cent). The fp32 prefill through the kernel against
-``use_kernels=False``: atol 1e-4 + rtol 1e-5 on the last hidden state and
-the caches.
+several per cent). The tensor-core kernel against ``flash_tiles_ref``,
+its own algorithm tile by tile, on the same bf16 values: atol 1e-2 +
+rtol 1e-2, since the two differ only in the order of the fp32 dot's sums,
+which can move a rounded probability or an output one bf16 unit (2^-7
+relative at most); and two calls give the same bits. The fp32 prefill
+through the kernel against ``use_kernels=False``: atol 1e-4 + rtol 1e-5 on
+the last hidden state and the caches.
 
 The quantized serving legs (int8 and fp8 payloads with per-rank scales)
 take the tolerances of their fp32 legs: the kernels and the plain versions
@@ -69,6 +75,7 @@ from repro_torch.core import ketops
 from repro_torch.core import quant as Q
 from repro_torch.data.synthetic import DataConfig, batch_at
 from repro_torch.kernels.flash_attn import ops as FA
+from repro_torch.kernels.flash_attn.ref import flash_tiles_ref
 from repro_torch.kernels.kron_gather import ops as G
 from repro_torch.kernels.kron_logits import ops as CE
 from repro_torch.kernels.kron_matmul import ops as M
@@ -320,20 +327,23 @@ def test_smoke_training_kernel_route_matches_plain(dev):
     for c in (cfg, dataclasses.replace(cfg, use_kernels=False)):
         state = with_params(MD.init_params(c, seed=0, device=dev))
         step = make_train_step(c, tcfg)
-        before = {**G.launches, **CE.launches, "flash_fwd": FA.launches["flash_fwd"]}
+        before = {**G.launches, **CE.launches, "flash_fwd": FA.launches["flash_fwd"],
+                  "flash_fwd_tc": FA.launches["flash_fwd_tc"]}
         losses = []
         for i in range(3):
             batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_at(dcfg, i).items()}
             state, metrics = step(state, batch)
             losses.append(metrics["loss"])
-        after = {**G.launches, **CE.launches, "flash_fwd": FA.launches["flash_fwd"]}
+        after = {**G.launches, **CE.launches, "flash_fwd": FA.launches["flash_fwd"],
+                 "flash_fwd_tc": FA.launches["flash_fwd_tc"]}
         runs.append((torch.stack(losses), list(tree_leaves(state["params"])),
                      {k: after[k] - before[k] for k in after}))
     (l_k, p_k, n_k), (l_p, p_p, n_p) = runs
-    # flash: each layer's forward and its recompute in the backward
+    # flash (fp32: the CUDA-core kernel): each layer's forward and its
+    # recompute in the backward
     assert n_k == {"kron_gather_fwd": 0, "kron_gather_fwd_stats": 3, "kron_gather_bwd": 3,
                    "kron_gather_fwd_quant": 0, "kron_ce_fwd": 3, "kron_ce_bwd": 3,
-                   "flash_fwd": 3 * 2 * cfg.num_layers}
+                   "flash_fwd": 3 * 2 * cfg.num_layers, "flash_fwd_tc": 0}
     assert not any(n_p.values())
     torch.testing.assert_close(l_k, l_p, atol=1e-5, rtol=1e-4)
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_k, p_p)])
@@ -534,9 +544,11 @@ FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
              torch.bfloat16: dict(atol=3e-2, rtol=3e-2),
              torch.float16: dict(atol=3e-2, rtol=3e-2)}
 FLASH_ROW_RTOL = 1e-2  # 16-bit rows against the fp32 oracle, relative to the row's norm
-# (Sq, Skv): equal and ragged, queries before and past the keys; the window
-# of 40 leaves the last rows of (150, 77) with no key (the mean of v)
-FLASH_LENGTHS = ((129, 129), (77, 150), (150, 77))
+# (Sq, Skv): equal and ragged, queries before and past the keys, lengths
+# that straddle the 64- and 128-row tiles; the window of 40 leaves the last
+# rows of (150, 77) and of (257, 130) with no key (the mean of v), so their
+# last query blocks walk every key tile
+FLASH_LENGTHS = ((129, 129), (77, 150), (150, 77), (257, 257), (128, 300), (257, 130))
 FLASH_MASKS = {"causal": (True, 0), "window": (True, 40), "bidirectional": (False, 0)}
 
 
@@ -557,24 +569,42 @@ def _assert_flash_close(got, q, k, v, causal=True, window=0):
         assert row_err.max().item() <= FLASH_ROW_RTOL
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("mask", list(FLASH_MASKS))
 @pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 def test_flash_kernel_matches_attention_ref(dev, G, Dh, mask, dtype):
     causal, window = FLASH_MASKS[mask]
+    route = "flash_fwd" if dtype == torch.float32 else "flash_fwd_tc"
+    assert FA.flash_route(dtype, Dh) == route
     for Sq, Skv in FLASH_LENGTHS:
         q, k, v = _qkv(dev, dtype, 2, Sq, Skv, 2 * G, 2, Dh)
-        before = FA.launches["flash_fwd"]
+        before = dict(FA.launches)
         got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        assert FA.launches["flash_fwd"] == before + 1
+        assert FA.launches == {**before, route: before[route] + 1}
         _assert_flash_close(got, q, k, v, causal, window)
 
 
 def test_flash_kernel_takes_fp16(dev):
     q, k, v = _qkv(dev, torch.float16, 1, 100, 100, 16, 8, 128)
+    before = FA.launches["flash_fwd_tc"]
     _assert_flash_close(FA.flash_attention_cuda(q, k, v), q, k, v)
+    assert FA.launches["flash_fwd_tc"] == before + 1
+
+
+@pytest.mark.parametrize("mask", list(FLASH_MASKS))
+@pytest.mark.parametrize("Dh", [16, 64, 128])
+def test_flash_tc_kernel_matches_its_tile_walk(dev, Dh, mask):
+    causal, window = FLASH_MASKS[mask]
+    for Sq, Skv in FLASH_LENGTHS:
+        q, k, v = _qkv(dev, torch.bfloat16, 2, Sq, Skv, 8, 2, Dh, seed=1)
+        got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = flash_tiles_ref(q, k, v, causal=causal, window=window)
+        assert got.dtype == want.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+        assert torch.equal(FA.flash_attention_cuda(q, k, v, causal=causal, window=window),
+                           got)
 
 
 def test_flash_kernel_refuses_unsupported_shapes(dev):
@@ -602,10 +632,10 @@ def test_flash_autograd_routes_agree(dev, mask):
     runs = []
     for use_kernel in (None, False):
         qkv = [t.requires_grad_(True) for t in _qkv(dev, torch.float32, 2, 150, 150, 8, 4, 128)]
-        before = FA.launches["flash_fwd"]
+        before = dict(FA.launches)
         out = FA.flash_attention(*qkv, causal=causal, window=window, use_kernel=use_kernel)
         grads = torch.autograd.grad(out, qkv, ct)
-        assert FA.launches["flash_fwd"] == before + (use_kernel is None)
+        assert FA.launches == {**before, "flash_fwd": before["flash_fwd"] + (use_kernel is None)}
         runs.append((out.detach(), grads))
     (o_k, g_k), (o_p, g_p) = runs
     torch.testing.assert_close(o_k, o_p, **FLASH_TOL[torch.float32])
@@ -619,10 +649,10 @@ def test_smoke_prefill_fn_kernel_route_matches_plain(dev):
     toks = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, dtype=torch.int32)
     outs = []
     for c in (cfg, dataclasses.replace(cfg, use_kernels=False)):
-        before = FA.launches["flash_fwd"]
+        before = dict(FA.launches)
         outs.append(MD.prefill_fn(params, c, {"tokens": toks}))
-        assert FA.launches["flash_fwd"] - before == (cfg.num_layers if c.use_kernels is None
-                                                     else 0)
+        ran = cfg.num_layers if c.use_kernels is None else 0  # fp32: the CUDA-core kernel
+        assert FA.launches == {**before, "flash_fwd": before["flash_fwd"] + ran}
     (x_k, c_k), (x_p, c_p) = outs
     torch.testing.assert_close(x_k, x_p, atol=1e-4, rtol=1e-5)
     assert len(c_k) == len(c_p) == cfg.num_layers

@@ -17,6 +17,19 @@ kernel against it on the card. What runs here:
 * ``FlashAttention``'s output and dq, dk, dv against ``jax.vjp`` of JAX
   ``ops.flash_attention`` (the Pallas forward in interpret mode, the
   oracle's VJP backward), atol 1e-6 + rtol 1e-4;
+* ``flash_tiles_ref`` (the tensor-core kernel's tile walk: 128-row query
+  blocks, 128-key tiles from ``flash_kv_tiles``, base-2 softmax, the scale
+  after the dot) against ``flash_attention_pallas(..., block_q=128,
+  block_k=128, interpret=True)`` and JAX ``attention_ref``, at lengths 1,
+  127, 128, 129 and 257, Sq != Skv both ways, windows whose last rows see
+  no key, G 1, 2 and 8, Dh 16, 64 and 128, at the same tolerances. A
+  row that sees no key is the mean of v over the Skv keys in both
+  ``attention_ref``s and in the tile walk; the Pallas kernel pads the keys
+  to its block with NEG scores and averages over the padded length there,
+  so against it only the rows that see a key are compared (and the padded
+  mean is checked on the others);
+* the static route table of the flash wrappers: bf16 and fp16 at every
+  head_dim to the tensor-core kernel, fp32 to the CUDA-core kernel;
 * ``prefill_fn`` on ``get_smoke("qwen3-1.7b", dtype=float32)`` with the
   parameters of JAX ``PRNGKey(0)``: the last hidden state and every
   layer's k and v against JAX ``prefill_fn``, atol 2e-4 (3 layers of fp32
@@ -40,7 +53,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_smoke
 from repro_torch.convert import jax_caches_to_torch, jax_params_to_torch
 from repro_torch.kernels.flash_attn import ops as FA
-from repro_torch.kernels.flash_attn.ref import attention_ref
+from repro_torch.kernels.flash_attn.ref import attention_ref, flash_kv_tiles, flash_tiles_ref
 from repro_torch.models import model as MD
 from repro_torch.models import transformer as T
 
@@ -96,6 +109,101 @@ def test_attention_ref_matches_jax(jax_outputs, case, oracle):
                                **TOL[dtype])
 
 
+TILE_CASES = {  # (B, Sq, Skv, H, KVH, Dh, causal, window, dtype)
+    "len1_g2_d16": (1, 1, 1, 2, 1, 16, True, 0, "float32"),
+    "len127_g8_d64": (1, 127, 127, 8, 1, 64, True, 0, "float32"),
+    "len128_g1_d128": (1, 128, 128, 2, 2, 128, True, 0, "float32"),
+    "len129_bidirectional_g2_d64": (1, 129, 129, 4, 2, 64, False, 0, "float32"),
+    "len257_g8_d16": (1, 257, 257, 8, 1, 16, True, 0, "float32"),
+    "sq_lt_skv_g2_d64": (1, 129, 257, 2, 1, 64, True, 0, "float32"),
+    "sq_gt_skv_g1_d16": (2, 257, 129, 2, 2, 16, True, 0, "float32"),
+    "blind_window_g2_d16": (1, 257, 130, 2, 1, 16, True, 40, "float32"),
+    "bf16_len257_g2_d128": (1, 257, 257, 4, 2, 128, True, 0, "bfloat16"),
+    "bf16_blind_window_g8_d64": (1, 257, 130, 8, 1, 64, True, 40, "bfloat16"),
+}
+
+
+def _sees_a_key(Sq, Skv, causal, window):
+    """(Sq,) bool: the query rows with at least one valid key."""
+    i = np.arange(Sq)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(Sq, dtype=int)
+    return hi >= lo
+
+
+@pytest.fixture(scope="module")
+def jax_tile_outputs():
+    """Each tile case's JAX oracle and Pallas (interpret mode, 128 x 128
+    blocks) outputs, once."""
+    out = {}
+    for name, (B, Sq, Skv, H, KVH, Dh, causal, window, dtype) in TILE_CASES.items():
+        (q, k, v), _ = _inputs(B, Sq, Skv, H, KVH, Dh, dtype, seed=4)
+        ref = jax.jit(lambda a, b, c: jax_attention_ref(a, b, c, causal=causal,
+                                                        window=window))
+        pallas = jax.jit(lambda a, b, c: flash_attention_pallas(
+            a, b, c, causal=causal, window=window, block_q=128, block_k=128,
+            interpret=True))
+        out[name] = {"jax_ref": np.asarray(ref(q, k, v).astype(jnp.float32)),
+                     "pallas": np.asarray(pallas(q, k, v).astype(jnp.float32)),
+                     "v": np.asarray(v.astype(jnp.float32))}
+    return out
+
+
+@pytest.mark.parametrize("oracle", ["jax_ref", "pallas"])
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_flash_tiles_ref_matches_jax(jax_tile_outputs, case, oracle):
+    B, Sq, Skv, H, KVH, Dh, causal, window, dtype = TILE_CASES[case]
+    _, (q, k, v) = _inputs(B, Sq, Skv, H, KVH, Dh, dtype, seed=4)
+    got = flash_tiles_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, Sq, H, Dh)
+    got, want = got.float().numpy(), jax_tile_outputs[case][oracle]
+    if oracle == "pallas":
+        sees = _sees_a_key(Sq, Skv, causal, window)
+        # rows that see no key: the Pallas kernel's mean of v over Skv keys
+        # padded to its 128-key block with zeros
+        vv = jax_tile_outputs[case]["v"]
+        padded = vv.sum(axis=1) / (-(-Skv // 128) * 128)  # (B, KVH, Dh)
+        blind = np.repeat(padded, H // KVH, axis=1)[:, None]  # (B, 1, H, Dh)
+        np.testing.assert_allclose(want[:, ~sees], np.broadcast_to(
+            blind, want[:, ~sees].shape), **TOL[dtype])
+        got, want = got[:, sees], want[:, sees]
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+def test_flash_kv_tiles_walks_what_the_masks_leave():
+    """The tile walk covers every key a block's rows see, and a blind block
+    walks every tile."""
+    for Sq, Skv, causal, window in ((257, 257, True, 0), (257, 130, True, 40),
+                                    (129, 257, True, 0), (300, 300, True, 100),
+                                    (257, 129, False, 0)):
+        sees = _sees_a_key(Sq, Skv, causal, window)
+        for q0 in range(0, Sq, 128):
+            lo, hi = flash_kv_tiles(q0, Sq, Skv, causal, window)
+            rows = np.arange(q0, min(q0 + 128, Sq))
+            if not sees[rows[-1]]:
+                assert (lo, hi) == (0, -(-Skv // 128))
+                continue
+            for i in rows:
+                kmax = min(i, Skv - 1) if causal else Skv - 1
+                kmin = max(0, i - window + 1) if window > 0 else 0
+                assert lo * 128 <= kmin and kmax < hi * 128
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_flash_route_table(dtype):
+    for d in FA.FLASH_HEAD_DIMS:
+        want = "flash_fwd" if dtype == torch.float32 else "flash_fwd_tc"
+        assert FA.flash_route(dtype, d) == want
+        assert ((dtype, d) in FA.FLASH_TC_ROUTES) == (want == "flash_fwd_tc")
+    assert FA.FLASH_BLOCK_Q == {"flash_fwd": 64, "flash_fwd_tc": 128}
+    assert set(FA.FLASH_BLOCK_Q) <= set(FA.launches)
+    # the CPU route launches neither kernel
+    before = dict(FA.launches)
+    q, k, v = (torch.zeros((1, 3, 2, 16), dtype=dtype) for _ in range(3))
+    FA.flash_attention(q, k, v)
+    assert FA.launches == before
+
+
 GRAD_CASES = {"gqa_causal": (1, 12, 12, 4, 2, 16, True, 0),
               "mqa_window": (2, 19, 19, 4, 1, 16, True, 5),
               "bidirectional_sq_ne_skv": (1, 9, 14, 2, 1, 16, False, 0)}
@@ -126,10 +234,10 @@ def test_flash_attention_op_and_grads_match_jax_vjp(jax_vjps, case):
     _, qkv = _inputs(B, Sq, Skv, H, KVH, Dh, "float32", seed=1)
     qkv = [t.requires_grad_(True) for t in qkv]
     g, want_o, want_grads = jax_vjps[case]
-    before = FA.launches["flash_fwd"]
+    before = dict(FA.launches)
     out = FA.flash_attention(*qkv, causal=causal, window=window)
     grads = torch.autograd.grad(out, qkv, torch.from_numpy(g))
-    assert FA.launches["flash_fwd"] == before  # the CPU route launches nothing
+    assert FA.launches == before  # the CPU route launches nothing
     np.testing.assert_allclose(out.detach().numpy(), want_o, atol=1e-6, rtol=1e-4)
     for got, want in zip(grads, want_grads):
         np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-4)
