@@ -35,13 +35,17 @@ non-zero, printing no result, when anything is missing or any phase fails:
    tick, and one full-width fp32 paged decode step held against the plain
    versions and against the dense-cache step;
 5. slice 3's kernels (training) at full width, each against its plain
-   version and timed as in phase 2: the kron_gather stats leg and backward
-   at 2,048 ids (repeated ids, 0 and vocab-1 among them; the backward run
-   twice for the same bits), and the fused Kronecker-head CE forward and
-   backward at 2,048 tokens (labels 0 and vocab-1 among them); the
-   yardsticks are ``F.embedding`` forward and backward on the materialized
-   1.24 GB table, and ``torch.matmul`` on the materialized head plus
-   ``F.cross_entropy`` (forward, and forward with backward);
+   version and timed as in phase 2: the kron_gather stats leg (its
+   column-contiguous copy and its lookup also timed apart, by the
+   profiler) and backward at 2,048 ids (repeated ids, 0 and vocab-1 among
+   them; the backward run twice for the same bits), and the fused
+   Kronecker-head CE forward and backward at 2,048 tokens (labels 0 and
+   vocab-1 among them; the backward on its tensor-core route, checked by
+   its route count, with its bound also at the TF32 rate, one pass and the
+   three of 3xTF32); the yardsticks are ``F.embedding`` forward and
+   backward on the materialized 1.24 GB table, and ``torch.matmul`` on the
+   materialized head plus ``F.cross_entropy`` (forward, and forward with
+   backward);
 6. slice 4's kernels (ket linears) at the four qwen3-1.7b ket-linear
    shapes at rank 8 (q/o, k/v, wi/wg, FFN wo): the kron_matmul forward at
    2,048 tokens and at 8 (serving) and its backward at 2,048 tokens, each
@@ -52,7 +56,8 @@ non-zero, printing no result, when anything is missing or any phase fails:
    full qwen3-1.7b trains for a few AdamW steps (no warmup) through
    ``make_train_step`` on ``synthetic.batch_at`` Markov batches of 8 x 256
    tokens, bf16 activations; every loss and grad norm finite, the last loss
-   below the first, each training kernel launched exactly once per step,
+   below the first, each training kernel launched exactly once per step
+   (the CE backward on its tensor-core route every step),
    the peak device memory, and a profile of one step; then one full-width
    fp32 training step through the kernels against ``use_kernels=False``
    (loss, embedding and head factor gradients, one layer's weights after
@@ -132,11 +137,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit, dense): HBM3
-# bytes/s, fp32 FLOP/s on the CUDA cores and bf16 / fp16 FLOP/s on the
-# tensor cores
+# bytes/s, fp32 FLOP/s on the CUDA cores and bf16 / fp16 and TF32 FLOP/s on
+# the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 
 ARCH = "qwen3-1.7b"
 BATCH, PROMPT_LEN, NEW_TOKENS, MAX_LEN = 8, 128, 32, 512
@@ -500,7 +506,7 @@ def reset_counts() -> None:
     from repro_torch.kernels.kron_logits import ops as CE
     from repro_torch.kernels.kron_matmul import ops as M
 
-    for counts in (FA.launches, G.launches, CE.launches, M.launches):
+    for counts in (FA.launches, G.launches, CE.launches, CE.routes, M.launches):
         for k in counts:
             counts[k] = 0
 
@@ -972,6 +978,11 @@ def check_training_kernels(torch, dev):
                                                  dfs)):
         fail("the gather backward gave other bits on a second run")
     log("  gather backward: the same bits on a second run")
+    split = kernel_times(torch, lambda: G.kron_gather_cuda(ef, ids, P, True, with_stats=True),
+                         {"column-contiguous copy": "transpose_factors_kernel",
+                          "lookup": "kron_gather2_kernel"})
+    log("  stats leg by kernel (profiler, warm L2, mean of 20 calls): " + ", ".join(
+        f"{k} {v:.4f} ms" if v == v else f"{k} not measured" for k, v in split.items()))
     d1, d2 = mixed_radix_digits(ids.long(), (t1, t2))
     cols = 4 * (d1.unique().numel() * r * q1 + d2.unique().numel() * r * q2)
     table = torch.cat([G.kron_gather(ef, part, P, True) for part in torch.split(
@@ -1031,8 +1042,16 @@ def check_training_kernels(torch, dev):
     max_err(torch, m, want[1], CE_LOSS_TOL, "CE forward m")
     max_err(torch, l, want[2], dict(atol=0.0, rtol=1e-4), "CE forward l")
     gce = torch.full((N,), 1.0 / N, device=dev)
+    route = CE.bwd_route(r, q1, q2, t2)
+    routes = dict(CE.routes)
     dfs, dh = CE.kron_ce_bwd_cuda(hf, h, y, m, l, gce, V)
     torch.cuda.synchronize()
+    if route != "kron_ce_bwd_tc" or CE.routes != {**routes, route: routes[route] + 1}:
+        fail(f"CE backward: route {route}, counts {CE.routes} (before {routes}); the "
+             f"head should take the tensor-core kernel")
+    splits = CE.bwd_vocab_splits(N, t1, torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count)
+    log(f"  CE backward on {route}: 64-token blocks x {splits} t1 splits, 3xTF32 wgmma")
     want_dfs, want_dh = CE.kron_ce_bwd_ref(hf, h, y, m, l, gce, V, tile)
     err_bwd = max(scaled(a, b, CE_BWD_SCALE, f"CE backward {name}") for name, a, b in
                   zip(("dh", "dF1", "dF2"), (dh, *dfs), (want_dh, *want_dfs)))
@@ -1073,6 +1092,9 @@ def check_training_kernels(torch, dev):
     # (stage-1 size)
     b_ms, b_by = bound(4 * N * P + 16 * N + hbytes + 4 * N * P + hbytes,
                        N * (3 * st1 + 3 * st2))
+    # the same operations at the TF32 tensor cores' rate: one pass, and the
+    # three passes of the 3xTF32 split
+    tf32_ms = N * (3 * st1 + 3 * st2) / PEAK_TF32_FLOPS * 1e3
     results.append({
         "name": "kron_ce_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/kron_logits.cu",
@@ -1084,6 +1106,7 @@ def check_training_kernels(torch, dev):
         "plain_ms": time_ms(torch, lambda: CE.kron_ce_bwd_ref(hf, h, y, m, l, gce, V, tile),
                             flush, iters=10),
         "bound_ms": b_ms, "bound_by": b_by,
+        "bound_tf32_ms": tf32_ms, "bound_3xtf32_ms": 3 * tf32_ms,
         "library_ms": time_ms(torch, dense_ce_fwd_bwd, flush, iters=10),
         "library": "torch.matmul + F.cross_entropy on the materialized head, "
                    "forward + backward",
@@ -1091,10 +1114,36 @@ def check_training_kernels(torch, dev):
     del head, hq, scratch
     torch.cuda.empty_cache()
     for e in results:
+        tf32 = (f" (TF32 one pass {e['bound_tf32_ms']:.4f} ms, 3xTF32 "
+                f"{e['bound_3xtf32_ms']:.4f} ms)" if "bound_tf32_ms" in e else "")
         log(f"  {e['name']:22s} kernel {e['ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']})  plain {e['plain_ms']:.4f} ms  library "
+            f"({e['bound_by']}){tf32}  plain {e['plain_ms']:.4f} ms  library "
             f"{e['library_ms']:.4f} ms")
     return results
+
+
+def kernel_times(torch, fn, names: dict, calls: int = 20) -> dict:
+    """Mean device time per call of each kernel that ``fn`` launches, by
+    torch.profiler over ``calls`` calls after a warm-up: {label: ms} for
+    ``names`` ({label: substring of the kernel's name}); "not measured" when
+    the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for label, key in names.items():
+        us = sum((getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA and key in e.key)
+        out[label] = us / 1e3 / calls if us > 0 else float("nan")
+    return out
 
 
 def drive_training(torch, dev, cfg, tag: str):
@@ -1154,6 +1203,11 @@ def drive_training(torch, dev, cfg, tag: str):
         f"recompute)")
     if launches != expected:
         fail(f"{tag}: launches {launches}, expected {expected}")
+    want_routes = {"kron_ce_bwd_tc": S, "kron_ce_bwd_simt": 0}
+    log(f"[{tag}] CE backward routes {CE.routes} (expected {want_routes}: the head "
+        f"takes the tensor-core kernel)")
+    if CE.routes != want_routes:
+        fail(f"{tag}: CE backward routes {CE.routes}, expected {want_routes}")
     if not all(math.isfinite(v) for v in losses + gnorms):
         fail(f"{tag}: non-finite training metrics: losses {losses}, grad norms {gnorms}")
     if not losses[-1] < losses[0]:
@@ -1167,8 +1221,12 @@ def drive_training(torch, dev, cfg, tag: str):
                                  "kron_matmul kernels": ["kron_stage", "kron_gemm",
                                                          "kron_sum_parts"],
                                  "CE kernels": ["ce_fwd_kernel", "ce_bwd_kernel",
-                                                "ce_combine", "sum_parts"],
-                                 "kron_gather kernels": ["kron_gather2"],
+                                                "ce_combine", "sum_parts",
+                                                "ce_bwd_tc_kernel", "prep_f2_kernel",
+                                                "transpose_x_kernel", "df2_reduce",
+                                                "dx_reduce"],
+                                 "kron_gather kernels": ["kron_gather2",
+                                                         "transpose_factors"],
                                  "GEMMs": ["gemm", "nvjet", "xmma", "cutlass"],
                                  "elementwise and copies": ["elementwise", "copy", "reduce"]})
     return launches, state

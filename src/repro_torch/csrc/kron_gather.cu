@@ -46,6 +46,20 @@
 //    (N, 2*nodes, rank) layout of the Pallas kernel with one node); the
 //    serving leg passes no stats pointer and writes none.
 //
+// The stats leg (w2k_kron_gather2_stats) reads its columns another way. At
+// 2,048 ids each id's rank*(q1+q2) = 3,072 strided floats sit in 3,072
+// separate 32-byte sectors: about 98 KB through L2 per id, 201 MB a call,
+// against the 34 MB that F.embedding moves. So the call first writes a
+// column-contiguous copy of both stacks, FT_j (t_j, rank, q_j), 4.8 MB
+// (transpose_factors_kernel, 32 x 32 tiles through shared memory); the
+// lookup then reads each id's two columns as contiguous runs of rank*q_j
+// floats, in 16-byte loads when both runs are multiples of 4 floats. Its
+// rank sum, which loaded two shared-memory floats per FMA, takes eight
+// outputs of a row per thread when q2 is a multiple of 8. The LN moments,
+// each output's sum, the NaN rows and the first out_cols columns are
+// those of the serving leg (the kernel below, instantiated with kRows), so
+// the two legs give the same bits.
+//
 // The quantized leg (serving, w2k_kron_gather2_quant) is the same kernel
 // instantiated for int8 or fp8 e4m3 payloads with fp32 per-rank scales
 // (core/quant's wire format): each factor element is dequantized as it is
@@ -103,15 +117,33 @@ __device__ __forceinline__ void gather_column(const T* __restrict__ f, int n, in
   }
 }
 
-// s1, s2: the payloads' (rank,) scales; unused (nullptr) for fp32 stacks
-template <typename T>
+// dst[e] = ft[d * n + e] for e < n: one factor column read as a contiguous
+// run of a (t_j, rank, q_j) copy, 16 bytes a load when `vec` (n and the
+// destination's offset multiples of 4 floats)
+__device__ __forceinline__ void gather_row(const float* __restrict__ ft, int n, int d,
+                                           bool vec, float* dst) {
+  const float* src = ft + static_cast<size_t>(d) * n;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int e = threadIdx.x; e < n / 4; e += kThreads) d4[e] = __ldg(s4 + e);
+  } else {
+    for (int e = threadIdx.x; e < n; e += kThreads) dst[e] = __ldg(src + e);
+  }
+}
+
+// s1, s2: the payloads' (rank,) scales; unused (nullptr) for fp32 stacks.
+// kRows: f1, f2 are the (t_j, rank, q_j) copies of the stats leg, whose
+// columns are contiguous rows (T = float); otherwise the (rank, q_j, t_j)
+// stacks, read a strided column at a time.
+template <typename T, bool kRows = false>
 __global__ void __launch_bounds__(kThreads)
 kron_gather2_kernel(const int32_t* __restrict__ ids,
                     const T* __restrict__ f1, const T* __restrict__ f2,
                     const float* __restrict__ s1, const float* __restrict__ s2,
                     int rank, int q1, int t1, int q2, int t2, int use_ln, float eps,
                     float* __restrict__ out, int out_cols, float* __restrict__ stats) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* a = smem;                  // [rank][q1], scaled by rstd_k under LN
   float* b = a + rank * q1;         // [rank][q2]
   float* shift = b + rank * q2;     // [rank]: rstd_k * mean_k (0 without LN)
@@ -129,9 +161,15 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
   const int d1 = id / t2;
   const int d2 = id - d1 * t2;
 
-  // F_j[k, i, d] lives at (k*q_j + i)*t_j + d
-  gather_column(f1, rank * q1, t1, d1, s1, q1, a);
-  gather_column(f2, rank * q2, t2, d2, s2, q2, b);
+  if constexpr (kRows) {
+    const bool vec = (rank * q1) % 4 == 0 && (rank * q2) % 4 == 0;
+    gather_row(f1, rank * q1, d1, vec, a);
+    gather_row(f2, rank * q2, d2, vec, b);
+  } else {
+    // F_j[k, i, d] lives at (k*q_j + i)*t_j + d
+    gather_column(f1, rank * q1, t1, d1, s1, q1, a);
+    gather_column(f2, rank * q2, t2, d2, s2, q2, b);
+  }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
@@ -176,6 +214,30 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
 
   float c = 0.f;
   for (int k = 0; k < rank; ++k) c += shift[k];
+  if constexpr (kRows) {
+    // eight outputs of one row i a thread: a'_k[i] loaded once for eight
+    // b_k[j] (two 16-byte loads), where the loop below loads both for each
+    // output; each output's rank sum is the same fmaf chain, so the same bits
+    if (q2 % 8 == 0 && (rank * q1) % 4 == 0) {
+      for (int g = threadIdx.x; 8 * g < out_cols; g += blockDim.x) {
+        const int e0 = 8 * g, i = e0 / q2, j0 = e0 - i * q2;
+        float acc[8] = {};
+#pragma unroll 4
+        for (int k = 0; k < rank; ++k) {
+          const float av = a[k * q1 + i];
+          const float4 b0 = *reinterpret_cast<const float4*>(b + k * q2 + j0);
+          const float4 b1 = *reinterpret_cast<const float4*>(b + k * q2 + j0 + 4);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int u = 0; u < 8; ++u) acc[u] = fmaf(av, bv[u], acc[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (e0 + u < out_cols) row[e0 + u] = acc[u] - c;
+      }
+      return;
+    }
+  }
   for (int e = threadIdx.x; e < out_cols; e += blockDim.x) {
     const int i = e / q2;
     const int j = e - i * q2;
@@ -429,6 +491,29 @@ int launch_gather(const int32_t* ids, int n_ids, const T* f1, const T* f2, const
   return static_cast<int>(cudaGetLastError());
 }
 
+// FT_j[d, e] = F_j[e, d] for both stacks, read as (R_j = rank*q_j, t_j)
+// matrices: one 32 x 32 tile per block, blocks [0, tiles of F1) for F1
+__global__ void __launch_bounds__(kThreads)
+transpose_factors_kernel(const float* __restrict__ f1, int r1, int t1,
+                         float* __restrict__ ft1, const float* __restrict__ f2, int r2,
+                         int t2, float* __restrict__ ft2) {
+  __shared__ float tile[32][33];
+  const int n1 = ((r1 + 31) / 32) * ((t1 + 31) / 32);
+  const bool first = static_cast<int>(blockIdx.x) < n1;
+  const int blk = first ? blockIdx.x : blockIdx.x - n1;
+  const float* f = first ? f1 : f2;
+  float* ft = first ? ft1 : ft2;
+  const int R = first ? r1 : r2, t = first ? t1 : t2;
+  const int ct = (t + 31) / 32;
+  const int r0 = (blk / ct) * 32, c0 = (blk % ct) * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int y = ty; y < 32; y += kThreads / 32)
+    if (r0 + y < R && c0 + tx < t) tile[y][tx] = f[static_cast<size_t>(r0 + y) * t + c0 + tx];
+  __syncthreads();
+  for (int y = ty; y < 32; y += kThreads / 32)
+    if (c0 + y < t && r0 + tx < R) ft[static_cast<size_t>(c0 + y) * R + r0 + tx] = tile[tx][y];
+}
+
 }  // namespace
 
 extern "C" long long w2k_kron_gather2_smem_bytes(int rank, int q1, int q2) {
@@ -443,6 +528,29 @@ extern "C" int w2k_kron_gather2(const int32_t* ids, int n_ids, const float* f1,
   return launch_gather<float>(ids, n_ids, f1, f2, nullptr, nullptr, rank, q1, t1, q2, t2,
                               use_ln, eps, out, out_cols, stats,
                               static_cast<cudaStream_t>(stream));
+}
+
+// The stats leg (LN on): ft1, ft2 are (t_j, rank, q_j) fp32 scratch that
+// this call fills with the column-contiguous copies of f1, f2; stats:
+// (n_ids, 2, rank) fp32
+extern "C" int w2k_kron_gather2_stats(const int32_t* ids, int n_ids, const float* f1,
+                                      const float* f2, int rank, int q1, int t1, int q2,
+                                      int t2, float eps, float* ft1, float* ft2, float* out,
+                                      int out_cols, float* stats, void* stream) {
+  if (n_ids <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int r1 = rank * q1, r2 = rank * q2;
+  const int tiles = ((r1 + 31) / 32) * ((t1 + 31) / 32) + ((r2 + 31) / 32) * ((t2 + 31) / 32);
+  transpose_factors_kernel<<<tiles, kThreads, 0, st>>>(f1, r1, t1, ft1, f2, r2, t2, ft2);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  const size_t smem = static_cast<size_t>(gather_smem_bytes(rank, q1, q2));
+  static size_t caps[kMaxDevices] = {};
+  const int cap = raise_smem_cap(kron_gather2_kernel<float, true>, smem, caps);
+  if (cap) return cap;
+  kron_gather2_kernel<float, true><<<n_ids, kThreads, smem, st>>>(
+      ids, ft1, ft2, nullptr, nullptr, rank, q1, t1, q2, t2, 1, eps, out, out_cols, stats);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The quantized serving leg: f1, f2 are (rank, q_j, t_j) payloads of

@@ -4,8 +4,9 @@
 tensor launches the CUDA kernels, a CPU tensor runs the plain versions in
 ``ref.py``. When a gradient is needed it goes through :class:`KronGather`,
 a ``torch.autograd.Function`` whose forward takes the stats leg (the lookup
-that also writes the per-node LN statistics) and whose backward is the
-dedicated backward kernel; otherwise the forward-only leg runs.
+that also writes the per-node LN statistics, reading its factor columns from
+a column-contiguous copy that the call makes first) and whose backward is
+the dedicated backward kernel; otherwise the forward-only leg runs.
 :func:`kron_gather_quant` is the forward-only lookup over int8 / fp8
 payloads with per-rank scales (core/quant), routed the same way: the
 dequant-fused CUDA leg, or :func:`kron_gather_quant_ref`.
@@ -45,6 +46,9 @@ def _load() -> ctypes.CDLL:
         lib.w2k_kron_gather2.argtypes = [p, i, p, p, i, i, i, i, i, i,
                                          ctypes.c_float, p, i, p, p]
         lib.w2k_kron_gather2.restype = i
+        lib.w2k_kron_gather2_stats.argtypes = [p, i, p, p, i, i, i, i, i, ctypes.c_float,
+                                               p, p, p, i, p, p]
+        lib.w2k_kron_gather2_stats.restype = i
         lib.w2k_kron_gather2_quant.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i,
                                                ctypes.c_float, p, i, p]
         lib.w2k_kron_gather2_quant.restype = i
@@ -119,7 +123,9 @@ def kron_gather_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
     """Launch the CUDA lookup: ids (N,) int32 -> (N, embed_dim) fp32. Ids
     outside ``[0, prod t)`` give rows of NaN. With ``with_stats`` (LN on)
     also returns the root node's LN statistics ``(N, 2, rank)`` fp32
-    (``[:, 0]`` mean, ``[:, 1]`` rstd) as ``(out, stats)``."""
+    (``[:, 0]`` mean, ``[:, 1]`` rstd) as ``(out, stats)``; that leg first
+    copies both stacks to ``(t_j, rank, q_j)`` scratch allocated here, and
+    the copy with its lookup counts as one launch."""
     if ids.device.type != "cuda":
         raise ValueError(f"kron_gather_cuda needs CUDA tensors, got {ids.device}")
     check_inputs(factors, ids, embed_dim)
@@ -138,10 +144,18 @@ def kron_gather_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
     if n > 0:
         with torch.cuda.device(ids.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.w2k_kron_gather2(ids.data_ptr(), n, f1.data_ptr(), f2.data_ptr(),
-                                      rank, q1, t1, q2, t2, int(use_layernorm), LN_EPS,
-                                      out.data_ptr(), embed_dim,
-                                      stats.data_ptr() if with_stats else None, stream)
+            if with_stats:
+                ft1 = torch.empty((t1, rank, q1), dtype=torch.float32, device=ids.device)
+                ft2 = torch.empty((t2, rank, q2), dtype=torch.float32, device=ids.device)
+                rc = lib.w2k_kron_gather2_stats(ids.data_ptr(), n, f1.data_ptr(),
+                                                f2.data_ptr(), rank, q1, t1, q2, t2, LN_EPS,
+                                                ft1.data_ptr(), ft2.data_ptr(),
+                                                out.data_ptr(), embed_dim, stats.data_ptr(),
+                                                stream)
+            else:
+                rc = lib.w2k_kron_gather2(ids.data_ptr(), n, f1.data_ptr(), f2.data_ptr(),
+                                          rank, q1, t1, q2, t2, int(use_layernorm), LN_EPS,
+                                          out.data_ptr(), embed_dim, None, stream)
         _raise_on(lib, rc, "kron_gather")
         launches["kron_gather_fwd_stats" if with_stats else "kron_gather_fwd"] += 1
     return (out, stats) if with_stats else out

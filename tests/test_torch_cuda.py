@@ -660,3 +660,93 @@ def test_smoke_prefill_fn_kernel_route_matches_plain(dev):
         for name in ("k", "v"):
             assert a[name].shape == (2, 100, cfg.num_kv_heads, cfg.head_dim)
             torch.testing.assert_close(a[name], b[name], atol=1e-4, rtol=1e-5)
+
+
+# The stats leg reads its columns from a column-contiguous copy of the
+# factor stacks that each call makes first: every id count from one to
+# several blocks' worth, repeated ids, the first and last valid ids, ids
+# outside [0, t1 t2) (a NaN row and NaN stats), and a stack whose columns
+# are not a multiple of 4 floats (scalar loads); the tolerances of the leg
+# above, the same bits on a second call, and the same bits as the serving
+# leg on the same ids.
+@pytest.mark.parametrize("rank,q,t,n", [(32, (64, 32), (390, 390), 1),
+                                        (32, (64, 32), (390, 390), 63),
+                                        (32, (64, 32), (390, 390), 2047),
+                                        (32, (64, 32), (390, 390), 2049),
+                                        (32, (64, 32), (390, 390), 8192),
+                                        (3, (5, 3), (7, 11), 40)])
+def test_kron_gather_stats_leg_edges(dev, rank, q, t, n):
+    f = _factors(dev, rank, q, t)
+    total = math.prod(t)
+    dim = math.prod(q)
+    ids = torch.randint(0, total, (n,), device=dev, dtype=torch.int32)
+    ids[0] = 0
+    if n > 1:
+        ids[-1] = total - 1
+    if n > 4:
+        ids[2], ids[3], ids[4] = ids[1], -1, total  # a repeat, two ids out of range
+    before = dict(G.launches)
+    out, stats = G.kron_gather_cuda(f, ids, dim, True, with_stats=True)
+    torch.cuda.synchronize()
+    assert G.launches == {**before,
+                          "kron_gather_fwd_stats": before["kron_gather_fwd_stats"] + 1}
+    assert out.shape == (n, dim) and stats.shape == (n, 2, rank)
+    bad = (ids < 0) | (ids >= total)
+    assert torch.isnan(out[bad]).all() and torch.isnan(stats[bad]).all()
+    want_out, want_stats = G.kron_gather_fwd_ref(f, ids[~bad], embed_dim=dim)
+    torch.testing.assert_close(out[~bad], want_out, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(stats[~bad], want_stats, atol=1e-5, rtol=1e-4)
+    again = G.kron_gather_cuda(f, ids, dim, True, with_stats=True)
+    assert torch.equal(again[0][~bad], out[~bad]) and torch.equal(again[1][~bad], stats[~bad])
+    # the serving leg (strided column loads) sums each output the same way
+    assert torch.equal(G.kron_gather_cuda(f, ids, dim, True)[~bad], out[~bad])
+
+
+def test_kron_gather_stats_leg_refuses_layernorm_off(dev):
+    f = _factors(dev, 2, (8, 8), (32, 32))
+    with pytest.raises(ValueError):
+        G.kron_gather_cuda(f, torch.zeros(3, device=dev, dtype=torch.int32), 64, False,
+                           with_stats=True)
+
+
+# The CE backward beyond CE_CASES: 1, 65 and 2,047 tokens of the qwen3-1.7b
+# head (one, two partial and 32 partial 64-token blocks), a vocabulary that
+# ends early inside a t1 column (100,000 = 256 x 390 + 160), and a head that
+# the static route sends to the CUDA-core kernel (1,024 ranks at q2 = 1:
+# its F1 column does not fit the tensor-core kernel). Each: the tolerances
+# and the float64 criterion of test_kron_ce_kernels_match_plain, the same
+# bits twice, the launch keys unchanged and one call counted on its route.
+CE_BWD_EDGES = [(32, (64, 32), (390, 390), 151936, 1, 2048),
+                (32, (64, 32), (390, 390), 151936, 65, 2048),
+                (32, (64, 32), (390, 390), 151936, 2047, 2000),
+                (32, (64, 32), (390, 390), 100000, 300, 2048),
+                (1024, (8, 1), (5, 7), 30, 40, 8)]
+
+
+@pytest.mark.parametrize("rank,q,t,vocab,n,width", CE_BWD_EDGES)
+def test_kron_ce_backward_edges(dev, rank, q, t, vocab, n, width):
+    f = _factors(dev, rank, q, t, seed=1)
+    h = torch.randn((n, width), device=dev)
+    y = torch.randint(0, vocab, (n,), device=dev, dtype=torch.int32)
+    y[0], y[-1] = vocab - 1, 0
+    _, m, l = CE.kron_ce_fwd_cuda(f, h, y, vocab)
+    g = (torch.rand(n, device=dev) + 0.5) / n
+    route = CE.bwd_route(rank, q[0], q[1], t[1])
+    assert route == ("kron_ce_bwd_simt" if rank == 1024 else "kron_ce_bwd_tc")
+    before, routes = dict(CE.launches), dict(CE.routes)
+    dfs, dh = CE.kron_ce_bwd_cuda(f, h, y, m, l, g, vocab)
+    torch.cuda.synchronize()
+    assert CE.launches == {**before, "kron_ce_bwd": before["kron_ce_bwd"] + 1}
+    assert CE.routes == {**routes, route: routes[route] + 1}
+    want_dfs, want_dh = CE.kron_ce_bwd_ref(f, h, y, m, l, g, vocab, 4)
+    assert dh.shape == h.shape and [d.shape for d in dfs] == [a.shape for a in f]
+    for a, b in zip([dh, *dfs], [want_dh, *want_dfs]):
+        _close_scaled(a, b, scale=1e-4)
+    exact_dfs, exact_dh = CE.kron_ce_bwd_ref([x.double() for x in f], h.double(), y,
+                                             m.double(), l.double(), g.double(), vocab, 4)
+    for a, b, e in zip([dh, *dfs], [want_dh, *want_dfs], [exact_dh, *exact_dfs]):
+        err_kernel = (a.double() - e).abs().max().item()
+        err_plain = (b.double() - e).abs().max().item()
+        assert err_kernel <= max(4 * err_plain, 1e-5 * e.abs().max().item())
+    again = CE.kron_ce_bwd_cuda(f, h, y, m, l, g, vocab)
+    assert torch.equal(again[1], dh) and all(torch.equal(a, b) for a, b in zip(again[0], dfs))

@@ -10,8 +10,10 @@ then trains the dense config and the ket config (rank 8) from seed 0 for
 ``--steps`` AdamW steps each at 8 x 256 synthetic tokens in bf16, as
 ``chip_smoke.py`` does, and prints the median step wall over steps 1 on
 (host clock after a sync) and the device time of one more step by
-``torch.profiler``: every kernel, and the flash-attention kernels alone.
-The last line is a JSON summary per tree. Needs a CUDA card.
+``torch.profiler``: every kernel, and apart the flash-attention kernels,
+the fused-CE kernels (forward, backward, their copies and reduces) and
+the kron_gather kernels. The last line is a JSON summary per tree. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -26,6 +28,11 @@ import time
 
 THIS = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS, SEQ, LR, KET_RANK = 2048, 256, 1e-3, 8
+# the kernels of csrc/kron_logits.cu and csrc/kron_gather.cu, by name
+CE_KEYS = ("ce_fwd_kernel", "ce_combine", "ce_bwd", "prep_f2", "transpose_x_kernel",
+           "df2_reduce", "dx_reduce", "sum_parts_kernel")
+GATHER_KEYS = ("kron_gather2", "transpose_factors")
+METRICS = ("wall_ms", "device_ms", "flash_ms", "ce_ms", "gather_ms")
 
 
 def child(root: str, steps: int) -> None:
@@ -73,9 +80,15 @@ def child(root: str, steps: int) -> None:
 
         kernels = [e for e in prof.key_averages()
                    if getattr(e, "device_type", None) == DeviceType.CUDA]
+        def is_ce(key):  # kron_matmul's kron_sum_parts_kernel is not one of them
+            return any(k in key for k in CE_KEYS) and "kron_sum_parts" not in key
+
         out[kind] = {"wall_ms": statistics.median(walls[1:]), "walls_ms": walls[1:],
                      "device_ms": sum(dev_ms(e) for e in kernels),
-                     "flash_ms": sum(dev_ms(e) for e in kernels if "flash_fwd" in e.key)}
+                     "flash_ms": sum(dev_ms(e) for e in kernels if "flash_fwd" in e.key),
+                     "ce_ms": sum(dev_ms(e) for e in kernels if is_ce(e.key)),
+                     "gather_ms": sum(dev_ms(e) for e in kernels
+                                      if any(k in e.key for k in GATHER_KEYS))}
         del state, step, batches
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
@@ -109,11 +122,11 @@ def main() -> None:
             print(f"{name:5s} " + "  ".join(
                 f"{k}: wall {v['wall_ms']:.1f} ms (steps "
                 f"{', '.join(f'{w:.1f}' for w in v['walls_ms'])}), device "
-                f"{v['device_ms']:.1f} ms, flash {v['flash_ms']:.3f} ms"
+                f"{v['device_ms']:.1f} ms, flash {v['flash_ms']:.3f} ms, CE "
+                f"{v['ce_ms']:.2f} ms, kron_gather {v['gather_ms']:.3f} ms"
                 for k, v in r.items()), flush=True)
     print(card)
-    print(json.dumps({name: {k: {m: statistics.median(r[k][m] for r in rs)
-                                 for m in ("wall_ms", "device_ms", "flash_ms")}
+    print(json.dumps({name: {k: {m: statistics.median(r[k][m] for r in rs) for m in METRICS}
                              for k in ("dense", "ket")} for name, rs in runs.items()}))
 
 
