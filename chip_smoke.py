@@ -14,7 +14,11 @@ non-zero, printing no result, when anything is missing or any phase fails:
    the full qwen3-1.7b shapes, with the tolerance stated, and timed with
    CUDA events (device time, L2 flushed before every launch; median of 50)
    beside its bound, the plain version and one PyTorch call as a yardstick
-   where one exists: the word2ketXS lookup, the kron head, and the split-KV
+   where one exists: the word2ketXS lookup (at 8, 128 and 32,768 ids, each
+   on the route ``ops.lookup_route`` picks, its other route and the stats
+   leg holding the same bits, and both routes timed from 8 to 32,768 ids:
+   the measurement behind ``ops.LOOKUP_ROWS_FROM``), the kron head, and the
+   split-KV
    paged decode read (split and combine) at 32 and 256 pages per slot with
    ragged lengths (0, a partial page, one past the table) and a NaN-filled
    trash page;
@@ -40,9 +44,11 @@ non-zero, printing no result, when anything is missing or any phase fails:
    profiler) and backward at 2,048 ids (repeated ids, 0 and vocab-1 among
    them; the backward run twice for the same bits), and the fused
    Kronecker-head CE forward and backward at 2,048 tokens (labels 0 and
-   vocab-1 among them; the backward on its tensor-core route, checked by
-   its route count, with its bound also at the TF32 rate, one pass and the
-   three of 3xTF32); the yardsticks are ``F.embedding`` forward and
+   vocab-1 among them; both on their tensor-core routes, checked by their
+   route counts, with their bounds also at the TF32 rate, one pass and the
+   three of 3xTF32; the forward's losses also against a float64 forward,
+   its CUDA-core kernel timed beside it, and both run twice for the same
+   bits); the yardsticks are ``F.embedding`` forward and
    backward on the materialized 1.24 GB table, and ``torch.matmul`` on the
    materialized head plus ``F.cross_entropy`` (forward, and forward with
    backward);
@@ -57,7 +63,7 @@ non-zero, printing no result, when anything is missing or any phase fails:
    ``make_train_step`` on ``synthetic.batch_at`` Markov batches of 8 x 256
    tokens, bf16 activations; every loss and grad norm finite, the last loss
    below the first, each training kernel launched exactly once per step
-   (the CE backward on its tensor-core route every step),
+   (the CE forward and backward on their tensor-core routes every step),
    the peak device memory, and a profile of one step; then one full-width
    fp32 training step through the kernels against ``use_kernels=False``
    (loss, embedding and head factor gradients, one layer's weights after
@@ -74,7 +80,8 @@ non-zero, printing no result, when anything is missing or any phase fails:
    counts checked, a profile of one decode step, and one fp32 decode step
    against the plain versions;
 10. slice 5's kernels (int8 / fp8 serving): the dequant-fused legs of the
-   lookup (8 and 128 ids) and of the chain (the head at B = 8 and 1, the
+   lookup (8, 128 and 32,768 ids, each the same bits as the fp32 leg on the
+   dequantized stacks) and of the chain (the head at B = 8 and 1, the
    four rank-8 ket projections at B = 8 and 128) in both modes, each
    against its plain version and timed as in phase 2 beside its bound, its
    fp32 leg on the dequantized factors, the plain version and a yardstick
@@ -146,6 +153,13 @@ PEAK_TF32_FLOPS = 495e12
 
 ARCH = "qwen3-1.7b"
 BATCH, PROMPT_LEN, NEW_TOKENS, MAX_LEN = 8, 128, 32, 512
+# the serving lookup at prefill_fn's 32,768 ids, and the id counts at which
+# its fp32 leg's two routes are timed against each other
+LOOKUP_LONG = 32768
+LOOKUP_ROUTE_SCAN = (8, 128, 256, 512, 1024, 2048, 8192, LOOKUP_LONG)
+# the plain lookup builds (ids, rank, q1*q2) rows: 8.6 GB at 32,768 ids, so
+# it runs over chunks of this many ids
+PLAIN_LOOKUP_CHUNK = 4096
 GATHER_TOL = dict(atol=1e-4, rtol=1e-5)  # sums of 32 unit-variance LN rows;
 # the kernel takes the order-2 LN moments by the separable formula
 MATMUL_TOL = dict(atol=1e-4, rtol=1e-5)  # depth-(r*q2) fp32 sums, other order
@@ -289,6 +303,11 @@ def max_err(torch, got, want, tol, what: str) -> float:
     return err
 
 
+def chunked(torch, fn, ids):
+    """``fn`` over ``ids`` in chunks of PLAIN_LOOKUP_CHUNK, concatenated."""
+    return torch.cat([fn(part) for part in torch.split(ids, PLAIN_LOOKUP_CHUNK)])
+
+
 def check_kernels(torch, dev):
     """Phase 2: each kernel against its plain version at full width, timed."""
     from repro_torch.configs import get_config
@@ -309,39 +328,67 @@ def check_kernels(torch, dev):
     flush = scratch.zero_
     results = []
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log(f"[kernels] kron_gather_fwd: F1 {tuple(ef[0].shape)}, F2 {tuple(ef[1].shape)} fp32, "
         f"LN on, out (N, {P})")
     gathers = {}
-    for n in (BATCH * cfg.prefill_chunk, BATCH, 131):
+    for n in (BATCH * cfg.prefill_chunk, BATCH, 131, LOOKUP_LONG):
         ids = torch.randint(0, V, (n,), generator=gen, device=dev, dtype=torch.int32)
         ids[0], ids[-1] = 0, V - 1
         got = G.kron_gather(ef, ids, P, True)
         torch.cuda.synchronize()
-        want = G.kron_gather(ef, ids, P, True, use_kernel=False)
+        want = chunked(torch, lambda part: G.kron_gather(ef, part, P, True, use_kernel=False),
+                       ids)
         gathers[n] = (ids, max_err(torch, got, want, GATHER_TOL, f"N={n}"))
+        del want
+        # the serving leg's bits: its other route and the stats leg give the same
+        route = G.lookup_route(n)
+        other = G.kron_gather_cuda(ef, ids, P, True,
+                                   route="rows" if route == "strided" else "strided")
+        stats_out = G.kron_gather_cuda(ef, ids, P, True, with_stats=True)[0]
+        if not (torch.equal(got, other) and torch.equal(got, stats_out)):
+            fail(f"kron_gather N={n}: the serving leg's routes or the stats leg disagree in "
+                 f"their bits")
+        log(f"  N={n}: route {route!r}, {G.lookup_bands(n, q1, sms)} block(s) per id; the "
+            f"other route and the stats leg give the same bits")
+        del got, other, stats_out
+    # the fp32 serving leg's route threshold (ops.LOOKUP_ROWS_FROM): both
+    # routes timed over the id counts of decode, prefill chunks and prefill_fn
+    log("  the two routes of the fp32 serving leg (L2 flushed, median of 20):")
+    for n in LOOKUP_ROUTE_SCAN:
+        ids = torch.randint(0, V, (n,), generator=gen, device=dev, dtype=torch.int32)
+        t = {rt: time_ms(torch, lambda: G.kron_gather_cuda(ef, ids, P, True, route=rt), flush,
+                         iters=20) for rt in ("strided", "rows")}
+        fast = min(t, key=t.get)
+        log(f"    N={n:6d}: strided {t['strided']:.4f} ms, rows {t['rows']:.4f} ms; faster "
+            f"{fast!r}, lookup_route {G.lookup_route(n)!r}")
     table = torch.cat([G.kron_gather(ef, part, P, True) for part in
                        torch.split(torch.arange(V, device=dev, dtype=torch.int32), 8192)])
-    for n in (BATCH * cfg.prefill_chunk, BATCH):
+    for n in (BATCH * cfg.prefill_chunk, BATCH, LOOKUP_LONG):
         ids, err = gathers[n]
         d1, d2 = mixed_radix_digits(ids.long(), (t1, t2))
         cols = d1.unique().numel() * r * q1 + d2.unique().numel() * r * q2
         b_ms, b_by = bound(4 * (n + cols + n * P), 2.0 * n * r * (P + q1 + q2))
         ids_long = ids.long()
+        iters = 5 if n == LOOKUP_LONG else 50
         entry = {
             "name": "kron_gather_fwd", "route": "cuda",
             "source": "src/repro_torch/csrc/kron_gather.cu",
             "replaces": "src/repro/kernels/kron_gather/kron_gather.py:57",
             "shape": f"ids ({n},) -> ({n}, {P})",
+            "lookup_route": G.lookup_route(n), "bands": G.lookup_bands(n, q1, sms),
             "max_abs_err": err,
-            "ms": time_ms(torch, lambda: G.kron_gather(ef, ids, P, True), flush),
-            "plain_ms": time_ms(torch, lambda: G.kron_gather(ef, ids, P, True,
-                                                             use_kernel=False), flush),
+            "ms": time_ms(torch, lambda: G.kron_gather(ef, ids, P, True), flush,
+                          iters=max(iters, 20)),
+            "plain_ms": time_ms(torch, lambda: chunked(
+                torch, lambda part: G.kron_gather(ef, part, P, True, use_kernel=False), ids),
+                flush, iters=iters),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(torch, lambda: torch.nn.functional.embedding(
-                ids_long, table), flush),
+                ids_long, table), flush, iters=max(iters, 20)),
         }
         results.append(entry)
-    del table
+    del table, gathers
 
     log(f"[kernels] kron_matmul_fwd: F1 {tuple(hf[0].shape)}, F2 {tuple(hf[1].shape)} fp32, "
         f"out (B, {V})")
@@ -369,7 +416,8 @@ def check_kernels(torch, dev):
     del head, scratch
     torch.cuda.empty_cache()
     for e in results:
-        log(f"  {e['name']:16s} {e['shape']:34s} kernel {e['ms']:.4f} ms  "
+        how = f" [{e['lookup_route']}, {e['bands']} band(s)]" if "bands" in e else ""
+        log(f"  {e['name']:16s} {e['shape']:34s}{how} kernel {e['ms']:.4f} ms  "
             f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})  plain {e['plain_ms']:.4f} ms  "
             f"library {e['library_ms']:.4f} ms")
     # the JSON line keeps one row per kernel: the decode-step shape, which
@@ -1035,12 +1083,34 @@ def check_training_kernels(torch, dev):
         f"F2 {tuple(hf[1].shape)} fp32, vocab {V} (of {t1 * t2} columns), "
         f"{CE.vocab_splits(N, t1, torch.cuda.get_device_properties(dev).multi_processor_count)}"
         f" t1 splits; plain version in tiles of {tile} t1 columns")
+    fwd_route = CE.fwd_route(r, q1, q2, t2)
+    routes = dict(CE.routes)
     loss, m, l = CE.kron_ce_fwd_cuda(hf, h, y, V)
     torch.cuda.synchronize()
+    if fwd_route != "kron_ce_fwd_tc" or CE.routes != {**routes, fwd_route: routes[fwd_route] + 1}:
+        fail(f"CE forward: route {fwd_route}, counts {CE.routes} (before {routes}); the head "
+             f"should take the tensor-core kernel")
+    log(f"  CE forward on {fwd_route}: 64-token blocks x "
+        f"{CE.bwd_vocab_splits(N, t1, torch.cuda.get_device_properties(dev).multi_processor_count)}"
+        f" t1 splits, 3xTF32 wgmma (the backward's pass 1)")
     want = CE.kron_ce_fwd_ref(hf, h, y, V, tile)
     err_fwd = max_err(torch, loss, want[0], CE_LOSS_TOL, "CE forward loss")
     max_err(torch, m, want[1], CE_LOSS_TOL, "CE forward m")
     max_err(torch, l, want[2], dict(atol=0.0, rtol=1e-4), "CE forward l")
+    # against a float64 forward: no further than 4x the fp32 plain version's
+    # error, or 1e-5 of the largest loss (the card tests' criterion)
+    exact = CE.kron_ce_fwd_ref([f.double() for f in hf], h.double(), y, V, tile)[0]
+    err64 = (loss.double() - exact).abs().max().item()
+    err64_plain = (want[0].double() - exact).abs().max().item()
+    limit64 = max(4 * err64_plain, 1e-5 * exact.abs().max().item())
+    log(f"  CE forward loss against float64: kernel {err64:.3e}, fp32 plain {err64_plain:.3e}, "
+        f"limit {limit64:.3e} ({err64 / limit64:.2f} of it)")
+    if not err64 <= limit64:
+        fail("CE forward: the losses are further from a float64 forward than the criterion")
+    again = CE.kron_ce_fwd_cuda(hf, h, y, V)
+    if not all(torch.equal(a, b) for a, b in zip(again, (loss, m, l))):
+        fail("the CE forward gave other bits on a second run")
+    del exact, again
     gce = torch.full((N,), 1.0 / N, device=dev)
     route = CE.bwd_route(r, q1, q2, t2)
     routes = dict(CE.routes)
@@ -1076,16 +1146,24 @@ def check_training_kernels(torch, dev):
     b_ms, b_by = bound(4 * N * P + 4 * N + hbytes + 12 * N, N * (st1 + st2))
     with torch.no_grad():
         lib_fwd = time_ms(torch, dense_ce, flush, iters=10)
+    # the same operations at the TF32 tensor cores' rate, as the backward's
+    # row counts them: one pass, and the three passes of the 3xTF32 split
+    tf32_fwd_ms = N * (st1 + st2) / PEAK_TF32_FLOPS * 1e3
     results.append({
-        "name": "kron_ce_fwd", "route": "cuda",
+        "name": "kron_ce_fwd", "route": "cuda", "ops_route": fwd_route,
         "source": "src/repro_torch/csrc/kron_logits.cu",
         "replaces": "src/repro/kernels/kron_logits/kron_logits.py:41",
         "shape": f"h ({N}, {P}), labels ({N},) -> loss, m, l ({N},)",
         "max_abs_err": err_fwd,
         "ms": time_ms(torch, lambda: CE.kron_ce_fwd_cuda(hf, h, y, V), flush, iters=10),
+        "simt_ms": time_ms(torch, lambda: CE.kron_ce_fwd_cuda(hf, h, y, V,
+                                                             route="kron_ce_fwd_simt"),
+                           flush, iters=10),
         "plain_ms": time_ms(torch, lambda: CE.kron_ce_fwd_ref(hf, h, y, V, tile), flush,
                             iters=10),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_fwd,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_tf32_ms": tf32_fwd_ms, "bound_3xtf32_ms": 3 * tf32_fwd_ms,
+        "float64_err": err64, "float64_limit": limit64, "library_ms": lib_fwd,
         "library": "torch.matmul on the materialized (2048, 151936) head + F.cross_entropy",
     })
     # recomputed stages 1 and 2, then dz, dF2 (stage-2 size) and dx, dF1
@@ -1096,7 +1174,7 @@ def check_training_kernels(torch, dev):
     # three passes of the 3xTF32 split
     tf32_ms = N * (3 * st1 + 3 * st2) / PEAK_TF32_FLOPS * 1e3
     results.append({
-        "name": "kron_ce_bwd", "route": "cuda",
+        "name": "kron_ce_bwd", "route": "cuda", "ops_route": route,
         "source": "src/repro_torch/csrc/kron_logits.cu",
         "replaces": "src/repro/kernels/kron_logits/kron_logits.py:78",
         "shape": f"h ({N}, {P}), labels, g, m, l ({N},) -> dh ({N}, {P}), dF1, dF2",
@@ -1116,8 +1194,9 @@ def check_training_kernels(torch, dev):
     for e in results:
         tf32 = (f" (TF32 one pass {e['bound_tf32_ms']:.4f} ms, 3xTF32 "
                 f"{e['bound_3xtf32_ms']:.4f} ms)" if "bound_tf32_ms" in e else "")
+        simt = f"  CUDA-core kernel {e['simt_ms']:.4f} ms" if "simt_ms" in e else ""
         log(f"  {e['name']:22s} kernel {e['ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}){tf32}  plain {e['plain_ms']:.4f} ms  library "
+            f"({e['bound_by']}){tf32}{simt}  plain {e['plain_ms']:.4f} ms  library "
             f"{e['library_ms']:.4f} ms")
     return results
 
@@ -1203,11 +1282,12 @@ def drive_training(torch, dev, cfg, tag: str):
         f"recompute)")
     if launches != expected:
         fail(f"{tag}: launches {launches}, expected {expected}")
-    want_routes = {"kron_ce_bwd_tc": S, "kron_ce_bwd_simt": 0}
-    log(f"[{tag}] CE backward routes {CE.routes} (expected {want_routes}: the head "
-        f"takes the tensor-core kernel)")
+    want_routes = {"kron_ce_bwd_tc": S, "kron_ce_bwd_simt": 0, "kron_ce_fwd_tc": S,
+                   "kron_ce_fwd_simt": 0}
+    log(f"[{tag}] CE routes {CE.routes} (expected {want_routes}: the head takes the "
+        f"tensor-core kernels)")
     if CE.routes != want_routes:
-        fail(f"{tag}: CE backward routes {CE.routes}, expected {want_routes}")
+        fail(f"{tag}: CE routes {CE.routes}, expected {want_routes}")
     if not all(math.isfinite(v) for v in losses + gnorms):
         fail(f"{tag}: non-finite training metrics: losses {losses}, grad norms {gnorms}")
     if not losses[-1] < losses[0]:
@@ -1220,8 +1300,8 @@ def drive_training(torch, dev, cfg, tag: str):
                  steady, groups={**FLASH_GROUPS,
                                  "kron_matmul kernels": ["kron_stage", "kron_gemm",
                                                          "kron_sum_parts"],
-                                 "CE kernels": ["ce_fwd_kernel", "ce_bwd_kernel",
-                                                "ce_combine", "sum_parts",
+                                 "CE kernels": ["ce_fwd_kernel", "ce_fwd_tc_kernel",
+                                                "ce_bwd_kernel", "ce_combine", "sum_parts",
                                                 "ce_bwd_tc_kernel", "prep_f2_kernel",
                                                 "transpose_x_kernel", "df2_reduce",
                                                 "dx_reduce"],
@@ -1450,13 +1530,15 @@ def check_quant_kernels(torch, dev):
     P, V = espec.in_dim, cfg.vocab_size
     scratch = torch.empty(16 * 2 ** 20, dtype=torch.int32, device=dev)  # 64 MB > L2
     flush = scratch.zero_
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results, ket_sums = [], {}
 
     def timed(entry, kern, plain, fp32, lib, iters=50):
-        entry.update(ms=time_ms(torch, kern, flush, iters=iters),
+        # at least 20 timed calls of the kernels; ``iters`` of the plain version
+        entry.update(ms=time_ms(torch, kern, flush, iters=max(iters, 20)),
                      plain_ms=time_ms(torch, plain, flush, iters=iters),
-                     fp32_ms=time_ms(torch, fp32, flush, iters=iters),
-                     library_ms=time_ms(torch, lib, flush, iters=iters))
+                     fp32_ms=time_ms(torch, fp32, flush, iters=max(iters, 20)),
+                     library_ms=time_ms(torch, lib, flush, iters=max(iters, 20)))
         return entry
 
     def split(fq):
@@ -1468,14 +1550,22 @@ def check_quant_kernels(torch, dev):
             f"{tuple(ep[1].shape)} {ep[0].dtype}, fp32 ({r}, 1, 1) scales, LN on, out (N, {P})")
         table = torch.cat([G.kron_gather(edq, part, P, True) for part in torch.split(
             torch.arange(V, device=dev, dtype=torch.int32), 8192)])
-        for n in (BATCH, BATCH * cfg.prefill_chunk):
+        for n in (BATCH, BATCH * cfg.prefill_chunk, LOOKUP_LONG):
             ids = torch.randint(0, V, (n,), generator=gen, device=dev, dtype=torch.int32)
             ids[0], ids[-1] = 0, V - 1
             got = G.kron_gather_quant(ep, es, ids, P, True)
             torch.cuda.synchronize()
-            err = max_err(torch, got, G.kron_gather_quant(ep, es, ids, P, True,
-                                                          use_kernel=False),
-                          GATHER_TOL, f"{mode} N={n}")
+            def plain(part):
+                return G.kron_gather_quant(ep, es, part, P, True, use_kernel=False)
+
+            err = max_err(torch, got, chunked(torch, plain, ids), GATHER_TOL, f"{mode} N={n}")
+            # the fp32 leg on the dequantized stacks (q.float() * scale) gives the same bits
+            if not torch.equal(got, G.kron_gather(edq, ids, P, True)):
+                fail(f"kron_gather_fwd_quant ({mode}) N={n}: other bits than the fp32 leg on "
+                     f"the dequantized stacks")
+            log(f"  {mode} N={n}: strided, {G.lookup_bands(n, q1, sms)} block(s) per id; the "
+                f"fp32 leg on the dequantized stacks ({G.lookup_route(n)!r}) gives the same bits")
+            del got
             d1, d2 = mixed_radix_digits(ids.long(), (t1, t2))
             cols = d1.unique().numel() * r * q1 + d2.unique().numel() * r * q2  # 1 B each
             b_ms, b_by = bound(4 * n + cols + 8 * r + 4 * n * P, 2.0 * n * r * (P + q1 + q2))
@@ -1485,12 +1575,12 @@ def check_quant_kernels(torch, dev):
                 "source": "src/repro_torch/csrc/kron_gather.cu",
                 "replaces": "src/repro/kernels/kron_gather/kron_gather.py:57",
                 "shape": f"ids ({n},) -> ({n}, {P})", "max_abs_err": err,
-                "bound_ms": b_ms, "bound_by": b_by,
+                "bands": G.lookup_bands(n, q1, sms), "bound_ms": b_ms, "bound_by": b_by,
                 "library": "F.embedding on the dequantized materialized 1.24 GB table"},
                 lambda: G.kron_gather_quant(ep, es, ids, P, True),
-                lambda: G.kron_gather_quant(ep, es, ids, P, True, use_kernel=False),
+                lambda: chunked(torch, plain, ids),
                 lambda: G.kron_gather(edq, ids, P, True),
-                lambda: F.embedding(ids_long, table)))
+                lambda: F.embedding(ids_long, table), iters=5 if n == LOOKUP_LONG else 50))
         del table
 
         hp, hs, hdq = split([Q.quantize(f, mode) for f in hf32])

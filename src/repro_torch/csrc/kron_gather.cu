@@ -27,17 +27,33 @@
 //    the rank*q_j strided floats straight from global memory / L2 (the whole
 //    factor stacks are 4.8 MB and stay in the 50 MB L2), with no transposed
 //    copy.
-//  * One block per id. The gathered columns sit in shared memory; each
-//    thread issues its strided column loads eight at a time, so they are in
-//    flight together.
+//  * Grid (ids x bands): a block writes a band of output rows i of one id,
+//    and the wrapper picks the bands from the id count (ops.lookup_bands:
+//    while the ids leave SMs free, up to 8 bands an id). Each block gathers
+//    both whole columns and takes every rank's LN moments itself, in the
+//    same order, so every band sums the same values; only the rank sum is
+//    split. One block's latency is the lookup's time at decode sizes (a
+//    clock64 probe of a lone block on an H100 found most of it in gathering
+//    the 3,072 strided floats from a cold L2 and in the LN moments taken
+//    one rank after another), so more SMs shorten only the rank sum. (A
+//    cluster whose blocks gathered a share of the ranks each and swapped
+//    them through distributed shared memory was slower: the swap and its
+//    cluster barriers cost more than the gathers they saved.) Each thread owns
+//    fixed slots (k, i) of a column, k-major: a payload's scale is one load
+//    per rank slice and no element needs a division; its loads of both
+//    columns are issued before any store, so they are in flight together.
 //  * The order-2 LN moments are separable: mean(a⊗b) = mean(a)·mean(b) and
 //    E[(a⊗b)^2] = E[a^2]·E[b^2], so each rank's node moments cost q1+q2 work
-//    instead of q1*q2 and the (rank, q1*q2) node is never built. One warp per
-//    rank reduces them with shuffles.
+//    instead of q1*q2 and the (rank, q1*q2) node is never built. A warp
+//    reduces four ranks at once with shuffles, each rank's sums in the
+//    order of one at a time.
 //  * LN(a_k⊗b_k) = (rstd_k a_k)⊗b_k − rstd_k·mean_k, so the rank sum is
-//    out[i,j] = sum_k a'_k[i]·b_k[j] − sum_k rstd_k·mean_k: each thread
-//    walks its output columns with a rank loop over shared memory (b reads
-//    are consecutive across a warp, a reads are broadcasts).
+//    out[i,j] = sum_k a'_k[i]·b_k[j] − sum_k rstd_k·mean_k: a thread takes
+//    eight outputs of one row (q2 a multiple of 8; one output otherwise),
+//    a'_k[i] loaded once for eight b_k[j] in two 16-byte loads (the stats
+//    leg's register tiling, now every leg's), each output's rank sum one
+//    fmaf chain in rank order, so every leg, route and band gives the same
+//    bits.
 //  * An id outside [0, t1*t2) gives a row of NaN and reads nothing.
 //  * Writes only the first out_cols columns (the caller's embed_dim), so the
 //    output is contiguous with no slice afterwards.
@@ -46,19 +62,20 @@
 //    (N, 2*nodes, rank) layout of the Pallas kernel with one node); the
 //    serving leg passes no stats pointer and writes none.
 //
-// The stats leg (w2k_kron_gather2_stats) reads its columns another way. At
-// 2,048 ids each id's rank*(q1+q2) = 3,072 strided floats sit in 3,072
-// separate 32-byte sectors: about 98 KB through L2 per id, 201 MB a call,
-// against the 34 MB that F.embedding moves. So the call first writes a
-// column-contiguous copy of both stacks, FT_j (t_j, rank, q_j), 4.8 MB
-// (transpose_factors_kernel, 32 x 32 tiles through shared memory); the
-// lookup then reads each id's two columns as contiguous runs of rank*q_j
-// floats, in 16-byte loads when both runs are multiples of 4 floats. Its
-// rank sum, which loaded two shared-memory floats per FMA, takes eight
-// outputs of a row per thread when q2 is a multiple of 8. The LN moments,
-// each output's sum, the NaN rows and the first out_cols columns are
-// those of the serving leg (the kernel below, instantiated with kRows), so
-// the two legs give the same bits.
+// Two routes read the columns. The strided one above reads each id's
+// rank*(q1+q2) = 3,072 floats from 3,072 separate 32-byte sectors: about 98
+// KB through L2 per id, 201 MB at 2,048 ids, against the 34 MB that
+// F.embedding moves. The column-contiguous route (w2k_kron_gather2_rows,
+// and the stats leg w2k_kron_gather2_stats) first writes a copy of both
+// stacks, FT_j (t_j, rank, q_j), 4.8 MB (transpose_factors_kernel, 32 x 32
+// tiles through shared memory); the lookup (the kernel instantiated with
+// kRows) then reads each id's two columns as contiguous runs of rank*q_j
+// floats, in 16-byte loads when both runs are multiples of 4 floats. The
+// copy costs a launch and 9.6 MB of traffic a call, so the fp32 serving
+// leg takes it only from an id count on (ops.lookup_route, measured on the
+// card); the stats leg always does (one block per id: 2,048 ids fill the
+// card). The LN moments, each output's sum, the NaN rows and the first
+// out_cols columns are the same on both routes, so they give the same bits.
 //
 // The quantized leg (serving, w2k_kron_gather2_quant) is the same kernel
 // instantiated for int8 or fp8 e4m3 payloads with fp32 per-rank scales
@@ -68,7 +85,8 @@
 // it). The payloads stream at one byte per element: the qwen3-1.7b stacks
 // are 1.2 MB instead of 4.8 MB, and a decode step reads rank*(q1+q2) bytes
 // of columns per id. Still bound by the launch and the load latency, as the
-// fp32 leg is. The fp32 instantiation is the code of the fp32 legs.
+// fp32 leg is. The fp32 instantiation is the code of the fp32 legs. It takes
+// the strided route at every id count (no byte copy of the payloads).
 
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -81,39 +99,86 @@ namespace {
 constexpr int kThreads = 256;
 
 // element idx of a factor stack as fp32: an fp32 stack as it is; an int8 /
-// fp8 payload times the scale of its rank slice k
+// fp8 payload times s, the scale of its rank slice
 template <typename T>
-__device__ __forceinline__ float load_elem(const T* __restrict__ f, size_t idx,
-                                           const float* __restrict__ scale, int k) {
-  return static_cast<float>(f[idx]) * scale[k];
+__device__ __forceinline__ float load_elem(const T* __restrict__ f, size_t idx, float s) {
+  return static_cast<float>(f[idx]) * s;
 }
 
 template <>
 __device__ __forceinline__ float load_elem<float>(const float* __restrict__ f, size_t idx,
-                                                  const float* __restrict__, int) {
+                                                  float) {
   return f[idx];
 }
 
-// dst[e] = F[e * t + d] for e < n (a strided column of a factor stack of
-// rank slices of q rows, dequantized by load_elem): eight loads per thread
-// are issued before any store, so they are in flight together instead of
-// one memory round trip each
+// the scale of rank slice k (not read for an fp32 stack)
 template <typename T>
-__device__ __forceinline__ void gather_column(const T* __restrict__ f, int n, int t, int d,
-                                              const float* __restrict__ scale, int q,
-                                              float* dst) {
-  for (int e0 = 0; e0 < n; e0 += 8 * kThreads) {
-    float v[8];
+__device__ __forceinline__ float slice_scale(const float* __restrict__ scale, int k) {
+  return scale[k];
+}
+
+template <>
+__device__ __forceinline__ float slice_scale<float>(const float* __restrict__, int) {
+  return 1.f;
+}
+
+// This thread's slots of a strided column, k-major: a fixed i = tid % q and
+// k = tid / q + per u (per = kThreads / q ranks a pass), so each slot's
+// scale is one load per k and no element needs a division.
+struct ColumnSlots {
+  int i, k0, per, n;  // n: slots of this thread
+  __device__ ColumnSlots(int rank, int q) {
+    per = kThreads / q;
+    k0 = threadIdx.x / q;
+    i = threadIdx.x - k0 * q;
+    n = (k0 < per && k0 < rank) ? (rank - k0 + per - 1) / per : 0;
+  }
+};
+
+// a[k * q1 + i] = F1[k, i, d1] and b[k * q2 + j] = F2[k, j, d2], dequantized
+// by load_elem: both columns' slots are loaded eight at a time each (twelve
+// in all at rank 32, q (64, 32)) before any store, so the strided loads
+// are in flight together instead of one memory round trip each. A stack
+// with q_j past kThreads takes a plain loop.
+template <typename T>
+__device__ __forceinline__ void gather_columns(const T* __restrict__ f1, const T* __restrict__ f2,
+                                               const float* __restrict__ s1,
+                                               const float* __restrict__ s2, int rank, int q1,
+                                               int t1, int d1, int q2, int t2, int d2, float* a,
+                                               float* b) {
+  if (q1 > kThreads || q2 > kThreads) {
+    for (int k = 0; k < rank; ++k) {
+      const float sa = slice_scale<T>(s1, k), sb = slice_scale<T>(s2, k);
+      for (int i = threadIdx.x; i < q1; i += kThreads)
+        a[k * q1 + i] = load_elem(f1, static_cast<size_t>(k * q1 + i) * t1 + d1, sa);
+      for (int j = threadIdx.x; j < q2; j += kThreads)
+        b[k * q2 + j] = load_elem(f2, static_cast<size_t>(k * q2 + j) * t2 + d2, sb);
+    }
+    return;
+  }
+  const ColumnSlots c1(rank, q1), c2(rank, q2);
+  for (int u0 = 0; u0 < c1.n || u0 < c2.n; u0 += 8) {
+    float va[8], vb[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int e = e0 + u * kThreads + threadIdx.x;
-      v[u] = e < n ? load_elem(f, static_cast<size_t>(e) * t + d, scale, e / q) : 0.f;
+      const int k = c1.k0 + c1.per * (u0 + u);
+      va[u] = u0 + u < c1.n ? load_elem(f1, static_cast<size_t>(k * q1 + c1.i) * t1 + d1,
+                                        slice_scale<T>(s1, k))
+                            : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int e = e0 + u * kThreads + threadIdx.x;
-      if (e < n) dst[e] = v[u];
+      const int k = c2.k0 + c2.per * (u0 + u);
+      vb[u] = u0 + u < c2.n ? load_elem(f2, static_cast<size_t>(k * q2 + c2.i) * t2 + d2,
+                                        slice_scale<T>(s2, k))
+                            : 0.f;
     }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (u0 + u < c1.n) a[(c1.k0 + c1.per * (u0 + u)) * q1 + c1.i] = va[u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (u0 + u < c2.n) b[(c2.k0 + c2.per * (u0 + u)) * q2 + c2.i] = vb[u];
   }
 }
 
@@ -132,27 +197,43 @@ __device__ __forceinline__ void gather_row(const float* __restrict__ ft, int n, 
   }
 }
 
+// floats of the a column in shared memory: rank*q1 rounded up to 4, so b
+// starts on 16 bytes
+__host__ __device__ inline int a_floats(int rank, int q1) { return (rank * q1 + 3) & ~3; }
+
+constexpr int kMR = 4;  // ranks a warp reduces at once in the LN moments
+
+// Grid: ids x bands blocks. Block y of id n writes the output rows i of its
+// band, [y band_rows, (y + 1) band_rows). Each block gathers both whole
+// columns and takes every rank's LN moments itself, in the same order, so
+// every band sums the same a', b and shift; only the rank sum is split.
 // s1, s2: the payloads' (rank,) scales; unused (nullptr) for fp32 stacks.
-// kRows: f1, f2 are the (t_j, rank, q_j) copies of the stats leg, whose
-// columns are contiguous rows (T = float); otherwise the (rank, q_j, t_j)
-// stacks, read a strided column at a time.
+// kRows: f1, f2 are the (t_j, rank, q_j) copies of the column-contiguous
+// route, whose columns are contiguous rows (T = float); otherwise the
+// (rank, q_j, t_j) stacks, read a strided column at a time. stats, when
+// given, is written by band 0.
 template <typename T, bool kRows = false>
 __global__ void __launch_bounds__(kThreads)
 kron_gather2_kernel(const int32_t* __restrict__ ids,
                     const T* __restrict__ f1, const T* __restrict__ f2,
                     const float* __restrict__ s1, const float* __restrict__ s2,
                     int rank, int q1, int t1, int q2, int t2, int use_ln, float eps,
-                    float* __restrict__ out, int out_cols, float* __restrict__ stats) {
+                    float* __restrict__ out, int out_cols, float* __restrict__ stats,
+                    int bands, int band_rows) {
   extern __shared__ __align__(16) float smem[];
-  float* a = smem;                  // [rank][q1], scaled by rstd_k under LN
-  float* b = a + rank * q1;         // [rank][q2]
-  float* shift = b + rank * q2;     // [rank]: rstd_k * mean_k (0 without LN)
+  float* a = smem;                          // [rank][q1], scaled by rstd_k under LN
+  float* b = a + a_floats(rank, q1);        // [rank][q2]
+  float* shift = b + rank * q2;             // [rank]: rstd_k * mean_k (0 without LN)
 
-  const int n = blockIdx.x;
+  const int n = blockIdx.x / bands, y = blockIdx.x - n * bands;
+  const int e_lo = y * band_rows * q2;
+  const int e_hi = min(out_cols, (y + 1) * band_rows * q2);
+  if (e_lo >= e_hi) return;  // a band past out_cols
   float* row = out + static_cast<size_t>(n) * out_cols;
+  if (y != 0) stats = nullptr;
   const int id = ids[n];
   if (id < 0 || id >= t1 * t2) {
-    for (int e = threadIdx.x; e < out_cols; e += blockDim.x) row[e] = nanf("");
+    for (int e = e_lo + threadIdx.x; e < e_hi; e += blockDim.x) row[e] = nanf("");
     if (stats != nullptr)
       for (int e = threadIdx.x; e < 2 * rank; e += blockDim.x)
         stats[static_cast<size_t>(n) * 2 * rank + e] = nanf("");
@@ -167,46 +248,67 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
     gather_row(f2, rank * q2, d2, vec, b);
   } else {
     // F_j[k, i, d] lives at (k*q_j + i)*t_j + d
-    gather_column(f1, rank * q1, t1, d1, s1, q1, a);
-    gather_column(f2, rank * q2, t2, d2, s2, q2, b);
+    gather_columns(f1, f2, s1, s2, rank, q1, t1, d1, q2, t2, d2, a, b);
   }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  for (int k = warp; k < rank; k += nwarps) {
-    if (!use_ln) {
-      if (lane == 0) shift[k] = 0.f;
-      continue;
-    }
-    float sa = 0.f, saa = 0.f, sb = 0.f, sbb = 0.f;
-    for (int i = lane; i < q1; i += 32) {
-      const float v = a[k * q1 + i];
-      sa += v;
-      saa = fmaf(v, v, saa);
-    }
-    for (int j = lane; j < q2; j += 32) {
-      const float v = b[k * q2 + j];
-      sb += v;
-      sbb = fmaf(v, v, sbb);
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      sa += __shfl_xor_sync(0xffffffffu, sa, o);
-      saa += __shfl_xor_sync(0xffffffffu, saa, o);
-      sb += __shfl_xor_sync(0xffffffffu, sb, o);
-      sbb += __shfl_xor_sync(0xffffffffu, sbb, o);
-    }
-    const float mean = (sa / q1) * (sb / q2);
-    const float ez2 = (saa / q1) * (sbb / q2);
-    const float rstd = rsqrtf(fmaxf(ez2 - mean * mean, 0.f) + eps);
-    // each lane rescales exactly the entries it summed above
-    for (int i = lane; i < q1; i += 32) a[k * q1 + i] *= rstd;
-    if (lane == 0) {
-      shift[k] = rstd * mean;
-      if (stats != nullptr) {
-        stats[(static_cast<size_t>(n) * 2) * rank + k] = mean;
-        stats[(static_cast<size_t>(n) * 2 + 1) * rank + k] = rstd;
+  if (!use_ln) {
+    for (int k = threadIdx.x; k < rank; k += blockDim.x) shift[k] = 0.f;
+  } else {
+    // warp w takes ranks w, w + nwarps, ..., kMR of them at once: each
+    // rank's sums are taken in the same order as one at a time (lane-strided,
+    // then a butterfly), interleaved with the other ranks' for latency
+    for (int kb = warp; kb < rank; kb += nwarps * kMR) {
+      float sa[kMR], saa[kMR], sb[kMR], sbb[kMR];
+#pragma unroll
+      for (int m = 0; m < kMR; ++m) sa[m] = saa[m] = sb[m] = sbb[m] = 0.f;
+      for (int i = lane; i < q1; i += 32)
+#pragma unroll
+        for (int m = 0; m < kMR; ++m) {
+          const int k = kb + nwarps * m;
+          if (k < rank) {
+            const float v = a[k * q1 + i];
+            sa[m] += v;
+            saa[m] = fmaf(v, v, saa[m]);
+          }
+        }
+      for (int j = lane; j < q2; j += 32)
+#pragma unroll
+        for (int m = 0; m < kMR; ++m) {
+          const int k = kb + nwarps * m;
+          if (k < rank) {
+            const float v = b[k * q2 + j];
+            sb[m] += v;
+            sbb[m] = fmaf(v, v, sbb[m]);
+          }
+        }
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int m = 0; m < kMR; ++m) {
+          sa[m] += __shfl_xor_sync(0xffffffffu, sa[m], o);
+          saa[m] += __shfl_xor_sync(0xffffffffu, saa[m], o);
+          sb[m] += __shfl_xor_sync(0xffffffffu, sb[m], o);
+          sbb[m] += __shfl_xor_sync(0xffffffffu, sbb[m], o);
+        }
+#pragma unroll
+      for (int m = 0; m < kMR; ++m) {
+        const int k = kb + nwarps * m;
+        if (k >= rank) break;
+        const float mean = (sa[m] / q1) * (sb[m] / q2);
+        const float ez2 = (saa[m] / q1) * (sbb[m] / q2);
+        const float rstd = rsqrtf(fmaxf(ez2 - mean * mean, 0.f) + eps);
+        // each lane rescales exactly the entries it summed above
+        for (int i = lane; i < q1; i += 32) a[k * q1 + i] *= rstd;
+        if (lane == 0) {
+          shift[k] = rstd * mean;
+          if (stats != nullptr) {
+            stats[(static_cast<size_t>(n) * 2) * rank + k] = mean;
+            stats[(static_cast<size_t>(n) * 2 + 1) * rank + k] = rstd;
+          }
+        }
       }
     }
   }
@@ -214,31 +316,29 @@ kron_gather2_kernel(const int32_t* __restrict__ ids,
 
   float c = 0.f;
   for (int k = 0; k < rank; ++k) c += shift[k];
-  if constexpr (kRows) {
+  if (q2 % 8 == 0) {
     // eight outputs of one row i a thread: a'_k[i] loaded once for eight
-    // b_k[j] (two 16-byte loads), where the loop below loads both for each
-    // output; each output's rank sum is the same fmaf chain, so the same bits
-    if (q2 % 8 == 0 && (rank * q1) % 4 == 0) {
-      for (int g = threadIdx.x; 8 * g < out_cols; g += blockDim.x) {
-        const int e0 = 8 * g, i = e0 / q2, j0 = e0 - i * q2;
-        float acc[8] = {};
+    // b_k[j] (two 16-byte loads); each output's rank sum is the fmaf chain
+    // of the loop below, so the same bits on every route and band
+    for (int e0 = e_lo + 8 * threadIdx.x; e0 < e_hi; e0 += 8 * blockDim.x) {
+      const int i = e0 / q2, j0 = e0 - i * q2;
+      float acc[8] = {};
 #pragma unroll 4
-        for (int k = 0; k < rank; ++k) {
-          const float av = a[k * q1 + i];
-          const float4 b0 = *reinterpret_cast<const float4*>(b + k * q2 + j0);
-          const float4 b1 = *reinterpret_cast<const float4*>(b + k * q2 + j0 + 4);
-          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int k = 0; k < rank; ++k) {
+        const float av = a[k * q1 + i];
+        const float4 b0 = *reinterpret_cast<const float4*>(b + k * q2 + j0);
+        const float4 b1 = *reinterpret_cast<const float4*>(b + k * q2 + j0 + 4);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-          for (int u = 0; u < 8; ++u) acc[u] = fmaf(av, bv[u], acc[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (e0 + u < out_cols) row[e0 + u] = acc[u] - c;
+        for (int u = 0; u < 8; ++u) acc[u] = fmaf(av, bv[u], acc[u]);
       }
-      return;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (e0 + u < e_hi) row[e0 + u] = acc[u] - c;
     }
+    return;
   }
-  for (int e = threadIdx.x; e < out_cols; e += blockDim.x) {
+  for (int e = e_lo + threadIdx.x; e < e_hi; e += blockDim.x) {
     const int i = e / q2;
     const int j = e - i * q2;
     float acc = 0.f;
@@ -474,21 +574,8 @@ kron_gather2_bwd_cols_kernel(const int32_t* __restrict__ ids, int n_ids,
 }
 
 long long gather_smem_bytes(int rank, int q1, int q2) {
-  return static_cast<long long>(rank) * (q1 + q2 + 1) * static_cast<long long>(sizeof(float));
-}
-
-template <typename T>
-int launch_gather(const int32_t* ids, int n_ids, const T* f1, const T* f2, const float* s1,
-                  const float* s2, int rank, int q1, int t1, int q2, int t2, int use_ln,
-                  float eps, float* out, int out_cols, float* stats, cudaStream_t st) {
-  if (n_ids <= 0) return 0;
-  const size_t smem = static_cast<size_t>(gather_smem_bytes(rank, q1, q2));
-  static size_t caps[kMaxDevices] = {};  // one set per payload type
-  const int rc = raise_smem_cap(kron_gather2_kernel<T>, smem, caps);
-  if (rc) return rc;
-  kron_gather2_kernel<T><<<n_ids, kThreads, smem, st>>>(
-      ids, f1, f2, s1, s2, rank, q1, t1, q2, t2, use_ln, eps, out, out_cols, stats);
-  return static_cast<int>(cudaGetLastError());
+  return (static_cast<long long>(a_floats(rank, q1)) + static_cast<long long>(rank) * (q2 + 1)) *
+         static_cast<long long>(sizeof(float));
 }
 
 // FT_j[d, e] = F_j[e, d] for both stacks, read as (R_j = rank*q_j, t_j)
@@ -514,62 +601,98 @@ transpose_factors_kernel(const float* __restrict__ f1, int r1, int t1,
     if (c0 + y < t && r0 + tx < R) ft[static_cast<size_t>(c0 + y) * R + r0 + tx] = tile[tx][y];
 }
 
+// kron_gather2_kernel<T, kRows> over ids x bands blocks (1 <= bands <= q1)
+template <typename T, bool kRows>
+int launch_lookup(const int32_t* ids, int n_ids, const T* f1, const T* f2, const float* s1,
+                  const float* s2, int rank, int q1, int t1, int q2, int t2, int use_ln,
+                  float eps, float* out, int out_cols, float* stats, int bands,
+                  cudaStream_t st) {
+  if (bands < 1 || bands > q1) return static_cast<int>(cudaErrorInvalidValue);
+  const int band_rows = (q1 + bands - 1) / bands;
+  const size_t smem = static_cast<size_t>(gather_smem_bytes(rank, q1, q2));
+  static size_t caps[kMaxDevices] = {};  // one set per instantiation
+  const int rc = raise_smem_cap(kron_gather2_kernel<T, kRows>, smem, caps);
+  if (rc) return rc;
+  kron_gather2_kernel<T, kRows><<<static_cast<unsigned>(n_ids) * bands, kThreads, smem, st>>>(
+      ids, f1, f2, s1, s2, rank, q1, t1, q2, t2, use_ln, eps, out, out_cols, stats, bands,
+      band_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the column-contiguous route: both stacks copied to (t_j, rank, q_j)
+// scratch ft1, ft2, then the lookup from the copies
+int launch_rows(const int32_t* ids, int n_ids, const float* f1, const float* f2, int rank,
+                int q1, int t1, int q2, int t2, int use_ln, float eps, float* ft1, float* ft2,
+                float* out, int out_cols, float* stats, int bands, cudaStream_t st) {
+  if (n_ids <= 0) return 0;
+  const int r1 = rank * q1, r2 = rank * q2;
+  const int tiles = ((r1 + 31) / 32) * ((t1 + 31) / 32) + ((r2 + 31) / 32) * ((t2 + 31) / 32);
+  transpose_factors_kernel<<<tiles, kThreads, 0, st>>>(f1, r1, t1, ft1, f2, r2, t2, ft2);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  return launch_lookup<float, true>(ids, n_ids, ft1, ft2, nullptr, nullptr, rank, q1, t1, q2,
+                                    t2, use_ln, eps, out, out_cols, stats, bands, st);
+}
+
 }  // namespace
 
 extern "C" long long w2k_kron_gather2_smem_bytes(int rank, int q1, int q2) {
   return gather_smem_bytes(rank, q1, q2);
 }
 
-// stats: nullptr for the serving leg, else (n_ids, 2, rank) fp32 (LN on)
+// The fp32 serving leg on the strided route: each id's columns read straight
+// from the (rank, q_j, t_j) stacks, `bands` blocks per id. stats: nullptr,
+// or (n_ids, 2, rank) fp32 (LN on)
 extern "C" int w2k_kron_gather2(const int32_t* ids, int n_ids, const float* f1,
                                 const float* f2, int rank, int q1, int t1, int q2,
                                 int t2, int use_ln, float eps, float* out,
-                                int out_cols, float* stats, void* stream) {
-  return launch_gather<float>(ids, n_ids, f1, f2, nullptr, nullptr, rank, q1, t1, q2, t2,
-                              use_ln, eps, out, out_cols, stats,
-                              static_cast<cudaStream_t>(stream));
+                                int out_cols, float* stats, int bands, void* stream) {
+  if (n_ids <= 0) return 0;
+  return launch_lookup<float, false>(ids, n_ids, f1, f2, nullptr, nullptr, rank, q1, t1, q2,
+                                     t2, use_ln, eps, out, out_cols, stats, bands,
+                                     static_cast<cudaStream_t>(stream));
 }
 
-// The stats leg (LN on): ft1, ft2 are (t_j, rank, q_j) fp32 scratch that
-// this call fills with the column-contiguous copies of f1, f2; stats:
-// (n_ids, 2, rank) fp32
+// The fp32 serving leg on the column-contiguous route: ft1, ft2 are
+// (t_j, rank, q_j) fp32 scratch that this call fills with copies of f1, f2;
+// `bands` blocks per id; no stats
+extern "C" int w2k_kron_gather2_rows(const int32_t* ids, int n_ids, const float* f1,
+                                     const float* f2, int rank, int q1, int t1, int q2, int t2,
+                                     int use_ln, float eps, float* ft1, float* ft2, float* out,
+                                     int out_cols, int bands, void* stream) {
+  return launch_rows(ids, n_ids, f1, f2, rank, q1, t1, q2, t2, use_ln, eps, ft1, ft2, out,
+                     out_cols, nullptr, bands, static_cast<cudaStream_t>(stream));
+}
+
+// The stats leg (LN on): the column-contiguous route, one block per id,
+// writing stats: (n_ids, 2, rank) fp32
 extern "C" int w2k_kron_gather2_stats(const int32_t* ids, int n_ids, const float* f1,
                                       const float* f2, int rank, int q1, int t1, int q2,
                                       int t2, float eps, float* ft1, float* ft2, float* out,
                                       int out_cols, float* stats, void* stream) {
-  if (n_ids <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int r1 = rank * q1, r2 = rank * q2;
-  const int tiles = ((r1 + 31) / 32) * ((t1 + 31) / 32) + ((r2 + 31) / 32) * ((t2 + 31) / 32);
-  transpose_factors_kernel<<<tiles, kThreads, 0, st>>>(f1, r1, t1, ft1, f2, r2, t2, ft2);
-  const int rc = static_cast<int>(cudaGetLastError());
-  if (rc) return rc;
-  const size_t smem = static_cast<size_t>(gather_smem_bytes(rank, q1, q2));
-  static size_t caps[kMaxDevices] = {};
-  const int cap = raise_smem_cap(kron_gather2_kernel<float, true>, smem, caps);
-  if (cap) return cap;
-  kron_gather2_kernel<float, true><<<n_ids, kThreads, smem, st>>>(
-      ids, ft1, ft2, nullptr, nullptr, rank, q1, t1, q2, t2, 1, eps, out, out_cols, stats);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows(ids, n_ids, f1, f2, rank, q1, t1, q2, t2, 1, eps, ft1, ft2, out, out_cols,
+                     stats, 1, static_cast<cudaStream_t>(stream));
 }
 
-// The quantized serving leg: f1, f2 are (rank, q_j, t_j) payloads of
-// `payload` kind (0: int8, 1: fp8 e4m3), s1, s2 their (rank,) fp32 scales;
-// no stats
+// The quantized serving leg (strided route): f1, f2 are (rank, q_j, t_j)
+// payloads of `payload` kind (0: int8, 1: fp8 e4m3), s1, s2 their (rank,)
+// fp32 scales; `bands` blocks per id; no stats
 extern "C" int w2k_kron_gather2_quant(const int32_t* ids, int n_ids, const void* f1,
                                       const void* f2, const float* s1, const float* s2,
                                       int payload, int rank, int q1, int t1, int q2, int t2,
                                       int use_ln, float eps, float* out, int out_cols,
-                                      void* stream) {
+                                      int bands, void* stream) {
+  if (n_ids <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (payload == 0)
-    return launch_gather(ids, n_ids, static_cast<const int8_t*>(f1),
-                         static_cast<const int8_t*>(f2), s1, s2, rank, q1, t1, q2, t2,
-                         use_ln, eps, out, out_cols, nullptr, st);
+    return launch_lookup<int8_t, false>(ids, n_ids, static_cast<const int8_t*>(f1),
+                                        static_cast<const int8_t*>(f2), s1, s2, rank, q1, t1,
+                                        q2, t2, use_ln, eps, out, out_cols, nullptr, bands, st);
   if (payload == 1)
-    return launch_gather(ids, n_ids, static_cast<const __nv_fp8_e4m3*>(f1),
-                         static_cast<const __nv_fp8_e4m3*>(f2), s1, s2, rank, q1, t1, q2,
-                         t2, use_ln, eps, out, out_cols, nullptr, st);
+    return launch_lookup<__nv_fp8_e4m3, false>(
+        ids, n_ids, static_cast<const __nv_fp8_e4m3*>(f1),
+        static_cast<const __nv_fp8_e4m3*>(f2), s1, s2, rank, q1, t1, q2, t2, use_ln, eps, out,
+        out_cols, nullptr, bands, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

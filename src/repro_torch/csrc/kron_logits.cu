@@ -1,8 +1,9 @@
 // Fused Kronecker-head cross-entropy, forward and backward, for Hopper
-// (sm_90a): order-2 heads. The forward and ce_bwd_kernel run fp32 on the
-// CUDA cores; ce_bwd_tc_kernel, the backward of every head that fits it
-// (the wrapper's static route), runs its three large products on the
-// tensor cores in 3xTF32 (the last part of this header).
+// (sm_90a): order-2 heads. ce_fwd_kernel and ce_bwd_kernel run fp32 on the
+// CUDA cores; ce_bwd_tc_kernel and ce_fwd_tc_kernel, the backward and the
+// forward of every head that fits them (the wrapper's static routes), run
+// their large products on the tensor cores in 3xTF32 (the last parts of
+// this header).
 //
 // Replaces: src/repro/kernels/kron_logits/kron_logits.py::_fwd_kernel
 // (reached through kron_ce_pallas) and ::_bwd_kernel (reached through
@@ -109,6 +110,30 @@
 //    TF32 tensor cores (3 passes each: 11.6 ms), the stage-1-sized
 //    products on the CUDA cores, the F2 images streamed from L2 (6.8 MB a
 //    block-column) and the partials' read-modify-writes.
+//
+// ce_fwd_tc_kernel: the forward on the tensor cores.
+//  * What held ce_fwd_kernel back (55.5 ms at 2,048 tokens on an H100,
+//    against an 11.1 ms fp32 bound): fp32 FMAs on the CUDA cores, each fed
+//    by a shared-memory load, in 32-token blocks.
+//  * It is the backward's pass 1 alone, in the same device code
+//    (logits_column): 64-token blocks, stage 1 per kz chunk on the CUDA
+//    cores, logits += z F2 as 3xTF32 wgmma m64n104k8 from the F2^T image
+//    (img1 only) streamed by a producer warpgroup's bulk copies, each
+//    k-step its own wgmma sum. So the backward recomputes the very logits
+//    whose (m, l) the forward took, to the bit.
+//  * Pass 2's registers and shared memory go unused; nothing gained from
+//    them on an H100: two k-steps in flight (two accumulators,
+//    wgmma.wait_group 1) need more than the 168 registers ptxas gives a
+//    thread of a 384-thread block (it spilled 696 bytes and serialized the
+//    wgmma), and loading the next k-step's A fragments while the current
+//    one runs did not change the time at 2,048 tokens. At the end of
+//    each t1 column, warp w of the consumers folds the
+//    logits of tokens 8 w .. 8 w + 7 into their online (m, l, label logit),
+//    masked past t2 and the vocabulary; ce_combine_kernel merges the
+//    splits' partials in split order, as for ce_fwd_kernel.
+//  * What bounds it: 0.74 TFLOP at 2,048 tokens, 1.5 ms for one TF32 pass,
+//    4.5 ms for the three of 3xTF32, and the F2^T image streamed from L2
+//    (3.4 MB a block-column).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -963,7 +988,8 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4]
 //    k-step (8 kz rows of the chunk), a (208 rows t) x (8 kz) tile of
 //    F2^T, hi then lo;
 //  * img2, dz's B operand: per chunk and stage, kSt2 (kCR rows of the chunk)
-//    x (8 t) tiles of F2, each hi then lo.
+//    x (8 t) tiles of F2, each hi then lo (not written when img2 is null:
+//    the forward streams img1 only).
 // Rows past t2 and padding rows of a chunk are 0.
 __global__ void prep_f2_kernel(const float* __restrict__ f2, Dims d, uint8_t* __restrict__ img1,
                                uint8_t* __restrict__ img2) {
@@ -980,6 +1006,7 @@ __global__ void prep_f2_kernel(const float* __restrict__ f2, Dims d, uint8_t* __
     uint8_t* s1 = img1 + ((static_cast<size_t>(ch) * 2 + h) * kKS1 + row / 8) * kStage1;
     *reinterpret_cast<uint32_t*>(s1 + sw32(th, kzi & 7)) = hi;
     *reinterpret_cast<uint32_t*>(s1 + kTile1 + sw32(th, kzi & 7)) = lo;
+    if (img2 == nullptr) continue;
     const int ks = t / 8;
     uint8_t* s2 = img2 + (static_cast<size_t>(ch) * kStages2 + ks / kSt2) * kStage2 +
                   (ks % kSt2) * 2 * kTile2;
@@ -1170,6 +1197,232 @@ __device__ void df1_chunk(const Dims& d, const Chunk& c, const float* dzs, const
   }
 }
 
+// ---------------------------------------------------------------------------
+// Pass 1, shared by ce_fwd_tc_kernel and ce_bwd_tc_kernel: the logits of one
+// t1 column of a 64-token block, so the forward's statistics and the
+// backward's softmax come from the same bits.
+
+// the pass-1 ring's barriers, first in both kernels' barrier arrays
+__device__ __forceinline__ uint32_t full1_bar(uint32_t bars, int s) { return bars + 8 * s; }
+__device__ __forceinline__ uint32_t empty1_bar(uint32_t bars, int s) {
+  return bars + 8 * (kNS1 + s);
+}
+
+// The producer's side of pass 1 for one column: its 2 n1 stages of img1
+// (both halves of t of every chunk) into the ring, each when its slot is free
+__device__ __forceinline__ void produce_logits_column(const uint8_t* __restrict__ img1, int n1,
+                                                      uint32_t ring, uint32_t bars,
+                                                      uint32_t& it1) {
+  for (int gk = 0; gk < 2 * n1; ++gk, ++it1) {
+    const int s = it1 % kNS1;
+    mbar_wait(empty1_bar(bars, s), ((it1 / kNS1) & 1) ^ 1);  // the first round passes at once
+    mbar_expect_tx(full1_bar(bars, s), kStage1);
+    bulk_load(ring + s * kStage1, img1 + static_cast<size_t>(gk) * kStage1, kStage1,
+              full1_bar(bars, s));
+  }
+}
+
+// F1[:, :, c] into f1t [q1][rp] (stage 1's operand) and, unless f1k is
+// null, into f1k [r][qp] (dx's)
+__device__ __forceinline__ void load_f1_tc(const float* __restrict__ f1, const Dims& d, int c,
+                                           float* f1t, float* f1k, int ct) {
+  for (int e = ct; e < d.r * d.q1; e += kConsumers) {
+    const int k = e / d.q1, i = e - k * d.q1;
+    const float v = __ldg(f1 + static_cast<size_t>(e) * d.t1 + c);
+    f1t[i * d.rp + k] = v;
+    if (f1k != nullptr) f1k[k * d.qp + i] = v;
+  }
+}
+
+// One half of t of a chunk's logits, 64 tokens x 104 t per warpgroup, into
+// run: the chunk's kKS1 k-steps, each its own three-product wgmma sum (the
+// small hi.lo and lo.hi terms first), waited on and added to run in fp32,
+// in k order.
+__device__ __forceinline__ void logits_half(const float* zs, uint32_t ring, uint32_t bars,
+                                            uint32_t it1, int wg, int r_lo, int qd,
+                                            float (&run)[52]) {
+  float part[52] = {};
+#pragma unroll
+  for (int e = 0; e < 52; ++e) run[e] = 0.f;
+  for (int ks = 0; ks < kKS1; ++ks) {
+    const uint32_t it = it1 + ks;
+    const int s = it % kNS1;
+    uint32_t ah[4], al[4];
+    a_frag(zs + ks * 8, kZS, 1, r_lo, qd, kT, ah, al);
+    mbar_wait(full1_bar(bars, s), (it / kNS1) & 1);
+    const uint32_t b = ring + s * kStage1 + wg * kNW * 32;
+    fence_regs(part);
+    wgmma_fence();
+    wgmma_n104(part, ah, desc_sw32(b + kTile1), 0);
+    wgmma_n104(part, al, desc_sw32(b), 1);
+    wgmma_n104(part, ah, desc_sw32(b), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+    mbar_arrive(empty1_bar(bars, s));
+#pragma unroll
+    for (int e = 0; e < 52; ++e) run[e] += part[e];
+  }
+}
+
+// Pass 1 of column (f1t holds its F1 column): the logits of the block's 64
+// tokens into dl [kT][kDLS] (t at 0 .. kTP; 0 past t2), chunk by chunk:
+// stage 1 once, then each half of t in turn. The tensor cores sum in fp32
+// with truncation toward 0, which over 384 chained products biases a logit
+// by about 1e-5 of its size; so each k-step's three products start from 0
+// and are added in fp32, rounding to nearest, to the chunk's sums, and
+// those to the logits in dl (16 adds at the logit's size, not 128).
+__device__ void logits_column(const Dims& d, const float* __restrict__ xt, int row0,
+                              const float* f1t, float* xs, float* zs, float* dl, uint32_t ring,
+                              uint32_t bars, uint32_t& it1, int ct) {
+  const int wg = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  const int qd = lane & 3, r_lo = 16 * warp + (lane >> 2);  // accumulator rows r_lo, r_lo + 8
+  for (int ch = 0; ch < d.nch; ++ch) {
+    const Chunk cc = chunk_of(d, ch);
+    consumer_sync();  // the x chunk and z before are read
+    stage_x(xt, row0, d, cc, xs, ct);
+    consumer_sync();
+    stage1<false>(d, cc, xs, f1t, zs, nullptr, ct);
+    consumer_sync();
+    for (int half = 0; half < 2; ++half, it1 += kKS1) {
+      float* mine = dl + half * kNH + wg * kNW + 2 * qd;  // + row * kDLS + 8 j
+      float run[52];
+      logits_half(zs, ring, bars, it1, wg, r_lo, qd, run);
+#pragma unroll
+      for (int j = 0; j < kNW / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* p = reinterpret_cast<float2*>(mine + (r_lo + 8 * h) * kDLS + 8 * j);
+          float2 v = make_float2(run[4 * j + 2 * h], run[4 * j + 2 * h + 1]);
+          if (ch > 0) {
+            const float2 o = *p;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *p = v;
+        }
+    }
+  }
+}
+
+// The forward's shared memory after pass 1's region: the x chunk, the F1
+// column [q1][rp], the per-token statistics [3][kT] (m, l, label logit) and
+// labels [kT], then the ring's barriers
+constexpr int kFwdBars = 2 * kNS1;
+
+__host__ __device__ inline int fwd_stats_offset(const Dims& d) {
+  return kPass1End + kXMax * 4 + 4 * d.q1 * d.rp;
+}
+
+__host__ __device__ inline int fwd_bars_offset(const Dims& d) {
+  return (fwd_stats_offset(d) + 16 * kT + 7) / 8 * 8;
+}
+
+inline long long fwd_smem_bytes(const Dims& d) {
+  return fwd_bars_offset(d) + 8LL * kFwdBars + 1024;  // + the alignment of the base
+}
+
+// The forward on the tensor cores (see the header): per column, pass 1,
+// then each token's online (m, l, label logit) over the column's
+// logits, masked past t2 and the vocabulary. Warp w of the consumers keeps
+// the statistics of tokens 8 w .. 8 w + 7 in shared memory.
+__global__ void __launch_bounds__(kThreads, 1)
+ce_fwd_tc_kernel(const float* __restrict__ xt, const int32_t* __restrict__ labels,
+                 const float* __restrict__ f1, const uint8_t* __restrict__ img1, Dims d,
+                 float* __restrict__ m_part, float* __restrict__ l_part,
+                 float* __restrict__ y_part) {
+  constexpr int kTW = kT / (kConsumers / 32);  // tokens per consumer warp
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sbase = (smem_addr(smem_raw) + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sbase - smem_addr(smem_raw));
+  float* dl = reinterpret_cast<float*>(base + kOffDl);
+  float* zs = reinterpret_cast<float*>(base + kOffZ);
+  float* xs = reinterpret_cast<float*>(base + kPass1End);
+  float* f1t = xs + kXMax;                                            // [q1][rp]
+  float* st = reinterpret_cast<float*>(base + fwd_stats_offset(d));  // [3][kT]
+  int* ys = reinterpret_cast<int*>(st + 3 * kT);                      // [kT]
+  const uint32_t bars = sbase + fwd_bars_offset(d);
+  const uint32_t ring = sbase + kOffRing1;
+
+  const int row0 = blockIdx.x * kT;
+  const int per = (d.t1 + d.splits - 1) / d.splits;
+  const int c0 = blockIdx.y * per, c1 = min(d.t1, c0 + per);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kNS1; ++s) {
+      mbar_init(full1_bar(bars, s), 1);
+      mbar_init(empty1_bar(bars, s), kConsumers);  // both warpgroups read every stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x != 0) return;
+    uint32_t it1 = 0;
+    for (int c = c0; c < c1; ++c) produce_logits_column(img1, d.nch * kKS1, ring, bars, it1);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int ct = threadIdx.x - 128;  // consumer thread
+  const int warp = ct >> 5, lane = ct & 31;
+  for (int e = ct; e < d.q1 * d.rp; e += kConsumers) f1t[e] = 0.f;  // pads stay 0
+  for (int b = ct; b < kT; b += kConsumers) {
+    const int row = row0 + b;
+    st[b] = kNeg;
+    st[kT + b] = 0.f;
+    st[2 * kT + b] = 0.f;
+    ys[b] = row < d.n ? labels[row] : -1;
+  }
+
+  uint32_t it1 = 0;
+  for (int c = c0; c < c1; ++c) {
+    consumer_sync();  // the column before has read the F1 column and dl
+    load_f1_tc(f1, d, c, f1t, nullptr, ct);
+    logits_column(d, xt, row0, f1t, xs, zs, dl, ring, bars, it1, ct);
+    consumer_sync();  // every logit of the column is in dl
+    const int col0 = c * d.t2;
+    for (int b = warp * kTW; b < (warp + 1) * kTW; ++b) {
+      const float* row = dl + b * kDLS + lane;
+      const float m_old = st[b], l_old = st[kT + b];
+      const int y = ys[b];
+      float v[kTP / 32];
+      float mx = kNeg;
+#pragma unroll
+      for (int u = 0; u < kTP / 32; ++u) {
+        const int t = u * 32 + lane;
+        v[u] = row[u * 32];
+        if (t < d.t2 && col0 + t < d.vocab) mx = fmaxf(mx, v[u]);
+      }
+      const float m_new = fmaxf(m_old, warp_max(mx));
+      float se = 0.f, pick = 0.f;
+#pragma unroll
+      for (int u = 0; u < kTP / 32; ++u) {
+        const int t = u * 32 + lane;
+        if (t < d.t2 && col0 + t < d.vocab) {
+          se += expf(v[u] - m_new);
+          if (col0 + t == y) pick = v[u];
+        }
+      }
+      se = warp_sum(se);
+      pick = warp_sum(pick);
+      if (lane == 0) {
+        st[b] = m_new;
+        st[kT + b] = l_old * expf(m_old - m_new) + se;
+        if (y >= col0 && y < col0 + d.t2) st[2 * kT + b] = pick;
+      }
+    }
+  }
+  consumer_sync();  // the statistics are written (or, with no column, initialized)
+  for (int b = warp * kTW + lane; b < (warp + 1) * kTW; b += 32) {
+    const size_t idx = static_cast<size_t>(blockIdx.y) * d.npad + row0 + b;
+    m_part[idx] = st[b];
+    l_part[idx] = st[kT + b];
+    y_part[idx] = st[2 * kT + b];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 ce_bwd_tc_kernel(const float* __restrict__ xt, const int32_t* __restrict__ labels,
                  const float* __restrict__ g, const float* __restrict__ m_in,
@@ -1189,8 +1442,6 @@ ce_bwd_tc_kernel(const float* __restrict__ xt, const int32_t* __restrict__ label
   float* f1t = reinterpret_cast<float*>(base + f1_offset(d));  // [q1][rp]
   float* f1k = f1t + d.q1 * d.rp;                               // [r][qp]
   const uint32_t bars = sbase + bars_offset(d);
-  const auto full1 = [&](int s) { return bars + 8 * s; };
-  const auto empty1 = [&](int s) { return bars + 8 * (kNS1 + s); };
   const auto full2 = [&](int s) { return bars + 8 * (2 * kNS1 + s); };
   const auto empty2 = [&](int s) { return bars + 8 * (2 * kNS1 + kNS2 + s); };
   const uint32_t p1done = bars + 8 * (2 * kNS1 + 2 * kNS2);
@@ -1203,8 +1454,8 @@ ce_bwd_tc_kernel(const float* __restrict__ xt, const int32_t* __restrict__ label
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kNS1; ++s) {
-      mbar_init(full1(s), 1);
-      mbar_init(empty1(s), kConsumers);  // both warpgroups read every pass-1 stage
+      mbar_init(full1_bar(bars, s), 1);
+      mbar_init(empty1_bar(bars, s), kConsumers);  // both warpgroups read every pass-1 stage
     }
     for (int s = 0; s < kNS2; ++s) {
       mbar_init(full2(s), 1);
@@ -1222,13 +1473,7 @@ ce_bwd_tc_kernel(const float* __restrict__ xt, const int32_t* __restrict__ label
     uint32_t it1 = 0, it2 = 0;
     for (int c = c0, ci = 0; c < c1; ++c, ++ci) {
       if (ci > 0) mbar_wait(p2done, (ci - 1) & 1);  // the column before has left the region
-      for (int gk = 0; gk < 2 * n1; ++gk, ++it1) {  // both halves of t
-        const int s = it1 % kNS1;
-        mbar_wait(empty1(s), ((it1 / kNS1) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(full1(s), kStage1);
-        bulk_load(sbase + kOffRing1 + s * kStage1, img1 + static_cast<size_t>(gk) * kStage1,
-                  kStage1, full1(s));
-      }
+      produce_logits_column(img1, n1, sbase + kOffRing1, bars, it1);
       mbar_wait(p1done, ci & 1);  // pass 1 has left the region
       for (int gs = 0; gs < n2; ++gs, ++it2) {
         const int s = it2 % kNS2;
@@ -1269,61 +1514,9 @@ ce_bwd_tc_kernel(const float* __restrict__ xt, const int32_t* __restrict__ label
   const int nmt = (d.t2 + 63) / 64;  // 64-row tiles of t in dF2^T
   for (int c = c0, ci = 0; c < c1; ++c, ++ci) {
     consumer_sync();  // the column before has read the F1 column and its dF1 sums
-    for (int e = ct; e < d.r * d.q1; e += kConsumers) {
-      const int k = e / d.q1, i = e - k * d.q1;
-      const float v = __ldg(f1 + static_cast<size_t>(e) * d.t1 + c);
-      f1t[i * d.rp + k] = v;
-      f1k[k * d.qp + i] = v;
-    }
-
-    // pass 1: the logits of this column. Per chunk, stage 1 once, then each
-    // half of t in turn, 64 tokens x 104 t per warpgroup. The tensor cores sum
-    // in fp32 with truncation toward 0, which over 384 chained products biases
-    // a logit by about 1e-5 of its size; so each k-step's three products start
-    // from 0 and are added in fp32, rounding to nearest, to the chunk's sums,
-    // and those to the logits in dl (16 adds at the logit's size, not 128)
-    for (int ch = 0; ch < d.nch; ++ch) {
-      const Chunk cc = chunk_of(d, ch);
-      consumer_sync();  // the x chunk and z before are read
-      stage_x(xt, row0, d, cc, xs, ct);
-      consumer_sync();
-      stage1<false>(d, cc, xs, f1t, zs, nullptr, ct);
-      consumer_sync();
-      for (int half = 0; half < 2; ++half) {
-        float* mine = dl + half * kNH + wg * kNW + 2 * qd;  // + row * kDLS + 8 j
-        float run[52] = {}, part[52] = {};
-        for (int ks = 0; ks < kKS1; ++ks, ++it1) {
-          const int s = it1 % kNS1;
-          uint32_t ah[4], al[4];
-          a_frag(zs + ks * 8, kZS, 1, r_lo, qd, kT, ah, al);
-          mbar_wait(full1(s), (it1 / kNS1) & 1);
-          const uint32_t b = sbase + kOffRing1 + s * kStage1 + wg * kNW * 32;
-          fence_regs(part);
-          wgmma_fence();
-          wgmma_n104(part, ah, desc_sw32(b + kTile1), 0);
-          wgmma_n104(part, al, desc_sw32(b), 1);
-          wgmma_n104(part, ah, desc_sw32(b), 1);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_regs(part);
-          mbar_arrive(empty1(s));
-#pragma unroll
-          for (int e = 0; e < 52; ++e) run[e] += part[e];
-        }
-#pragma unroll
-        for (int j = 0; j < kNW / 8; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float2* p = reinterpret_cast<float2*>(mine + (r_lo + 8 * h) * kDLS + 8 * j);
-            float2 v = make_float2(run[4 * j + 2 * h], run[4 * j + 2 * h + 1]);
-            if (ch > 0) {
-              const float2 o = *p;
-              v = make_float2(o.x + v.x, o.y + v.y);
-            }
-            *p = v;
-          }
-      }
-    }
+    load_f1_tc(f1, d, c, f1t, f1k, ct);
+    // pass 1: the logits of this column (logits_column)
+    logits_column(d, xt, row0, f1t, xs, zs, dl, sbase + kOffRing1, bars, it1, ct);
 
     // dlogit = g (softmax - onehot), 0 past t2 or the vocabulary, in place of
     // the logits (each thread rewrites the entries it summed)
@@ -1631,6 +1824,49 @@ extern "C" int w2k_kron_ce_bwd_tc(const float* x, int n, const int32_t* labels, 
   if (rc) return rc;
   tc::dx_reduce_kernel<<<tc::grid_for(static_cast<long long>(d.npad) * q2 * d.qp), 256, 0,
                          st>>>(dx_part, d, dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core forward: the inputs and outputs of w2k_kron_ce_fwd, with
+// 64-token blocks (npad a multiple of 64) and the chunk geometry (jcm, kcm)
+// of the tensor-core backward. Scratch: xt (npad, q2, q1); img1, nch * 8 *
+// 26,624 bytes; m_part, l_part, y_part (splits, npad).
+extern "C" long long w2k_kron_ce_fwd_tc_smem_bytes(int r, int q1, int q2, int t2, int jcm,
+                                                   int kcm) {
+  return tc::fwd_smem_bytes(tc::make_dims(1, r, q1, 1, q2, t2, 1, 1, jcm, kcm));
+}
+
+extern "C" int w2k_kron_ce_fwd_tc(const float* x, int n, const int32_t* labels, const float* f1,
+                                  const float* f2, int r, int q1, int t1, int q2, int t2,
+                                  int vocab, int splits, int jcm, int kcm, float* xt, void* img1,
+                                  float* m_part, float* l_part, float* y_part, float* loss,
+                                  float* m, float* l, void* stream) {
+  if (n <= 0) return 0;
+  const tc::Dims d = tc::make_dims(n, r, q1, t1, q2, t2, vocab, splits, jcm, kcm);
+  const int kcp = (kcm + 3) & ~3;
+  if (t2 > tc::kTP || kcm < 1 || kcm > r || jcm < 1 || jcm * kcp > tc::kCR ||
+      jcm * tc::kT * d.qp > tc::kXMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  tc::transpose_x_kernel<<<d.npad, 256, 0, st>>>(x, d, xt);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  tc::prep_f2_kernel<<<tc::grid_for(static_cast<long long>(d.kzp) * tc::kTP), 256, 0, st>>>(
+      f2, d, static_cast<uint8_t*>(img1), nullptr);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  const size_t smem = static_cast<size_t>(tc::fwd_smem_bytes(d));
+  static size_t caps[kMaxDevices] = {};
+  rc = raise_smem_cap(tc::ce_fwd_tc_kernel, smem, caps);
+  if (rc) return rc;
+  tc::ce_fwd_tc_kernel<<<dim3(d.npad / tc::kT, splits), tc::kThreads, smem, st>>>(
+      xt, labels, f1, static_cast<const uint8_t*>(img1), d, m_part, l_part, y_part);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  Dims dc = make_dims(n, r, q1, t1, q2, t2, vocab, splits);
+  dc.npad = d.npad;  // the partials' rows
+  ce_combine_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(m_part, l_part, y_part,
+                                                                          dc, loss, m, l);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,16 @@ the dedicated backward kernel; otherwise the forward-only leg runs.
 payloads with per-rank scales (core/quant), routed the same way: the
 dequant-fused CUDA leg, or :func:`kron_gather_quant_ref`.
 
-``launches`` counts kernel launches per leg and nothing else.
+The serving legs split each id over :func:`lookup_bands` blocks, so a
+decode step's few ids occupy more SMs (each block gathers the whole
+columns and splits only the rank sum). The fp32 serving leg reads its
+columns by one of two routes, picked by :func:`lookup_route` from the id
+count: ``"strided"`` straight from the ``(rank, q_j, t_j)`` stacks, or
+``"rows"`` from column-contiguous copies that the call writes first (the
+stats leg's route). Every route and band count gives the same bits.
+
+``launches`` counts one per wrapper call of each leg, however many CUDA
+launches the call makes.
 """
 
 from __future__ import annotations
@@ -30,11 +39,16 @@ from repro_torch.kernels.kron_gather.ref import (kron_gather_bwd_ref, kron_gathe
 __all__ = ["kron_gather", "kron_gather_cuda", "kron_gather_bwd_cuda", "KronGather",
            "kron_gather_quant", "kron_gather_quant_cuda", "kron_gather_ref",
            "kron_gather_fwd_ref", "kron_gather_bwd_ref", "kron_gather_quant_ref",
-           "check_inputs", "check_quant_inputs", "launches"]
+           "check_inputs", "check_quant_inputs", "lookup_route", "lookup_bands",
+           "LOOKUP_ROWS_FROM", "MAX_BANDS", "launches"]
 
 launches = {"kron_gather_fwd": 0, "kron_gather_fwd_stats": 0, "kron_gather_bwd": 0,
             "kron_gather_fwd_quant": 0}
 _SMEM_LIMIT = 227 * 1024
+# From this many ids on, the fp32 serving leg takes the column-contiguous
+# route: there the copy's fixed cost (a launch, 9.6 MB of traffic) is less
+# than the strided reads it saves
+LOOKUP_ROWS_FROM = 256
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -44,13 +58,16 @@ def _load() -> ctypes.CDLL:
         lib = build.load("kron_gather")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.w2k_kron_gather2.argtypes = [p, i, p, p, i, i, i, i, i, i,
-                                         ctypes.c_float, p, i, p, p]
+                                         ctypes.c_float, p, i, p, i, p]
         lib.w2k_kron_gather2.restype = i
         lib.w2k_kron_gather2_stats.argtypes = [p, i, p, p, i, i, i, i, i, ctypes.c_float,
                                                p, p, p, i, p, p]
         lib.w2k_kron_gather2_stats.restype = i
+        lib.w2k_kron_gather2_rows.argtypes = [p, i, p, p, i, i, i, i, i, i, ctypes.c_float,
+                                              p, p, p, i, i, p]
+        lib.w2k_kron_gather2_rows.restype = i
         lib.w2k_kron_gather2_quant.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i,
-                                               ctypes.c_float, p, i, p]
+                                               ctypes.c_float, p, i, i, p]
         lib.w2k_kron_gather2_quant.restype = i
         lib.w2k_kron_gather2_smem_bytes.argtypes = [i, i, i]
         lib.w2k_kron_gather2_smem_bytes.restype = ctypes.c_longlong
@@ -104,6 +121,33 @@ def check_quant_inputs(factors_q: Sequence[torch.Tensor], scales: Sequence[torch
     return quant_scales(factors_q, scales)
 
 
+def lookup_route(n_ids: int) -> str:
+    """How the fp32 serving leg reads its columns at ``n_ids`` ids:
+    ``"rows"`` (copy both stacks column-contiguous, then contiguous reads)
+    from :data:`LOOKUP_ROWS_FROM` ids on, ``"strided"`` below."""
+    return "rows" if n_ids >= LOOKUP_ROWS_FROM else "strided"
+
+
+# blocks per id at most: past 8 the split rank sum saves under 0.2 us
+MAX_BANDS = 8
+
+
+def lookup_bands(n_ids: int, q1: int, sms: int) -> int:
+    """Blocks per id of the serving legs, each writing a band of the id's q1
+    output rows (and each gathering the whole columns): while the ids leave
+    SMs free, as many as one block per SM allows (at most 8 and q1), with no
+    band empty; one from ``sms // 2 + 1`` ids on."""
+    if n_ids <= 0:
+        return 1
+    want = max(1, min(q1, MAX_BANDS, sms // n_ids))
+    rows = -(-q1 // want)
+    return -(-q1 // rows)
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _fwd_smem_check(lib, rank: int, q1: int, q2: int) -> None:
     smem = lib.w2k_kron_gather2_smem_bytes(rank, q1, q2)
     if smem > _SMEM_LIMIT:
@@ -119,19 +163,24 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 def kron_gather_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
                      embed_dim: int, use_layernorm: bool = True,
-                     with_stats: bool = False):
+                     with_stats: bool = False, route: Optional[str] = None):
     """Launch the CUDA lookup: ids (N,) int32 -> (N, embed_dim) fp32. Ids
     outside ``[0, prod t)`` give rows of NaN. With ``with_stats`` (LN on)
     also returns the root node's LN statistics ``(N, 2, rank)`` fp32
     (``[:, 0]`` mean, ``[:, 1]`` rstd) as ``(out, stats)``; that leg first
     copies both stacks to ``(t_j, rank, q_j)`` scratch allocated here, and
-    the copy with its lookup counts as one launch."""
+    the copy with its lookup counts as one launch. The serving leg reads by
+    ``route`` (default :func:`lookup_route`; ``"rows"`` makes the same copy
+    first) over :func:`lookup_bands` blocks per id."""
     if ids.device.type != "cuda":
         raise ValueError(f"kron_gather_cuda needs CUDA tensors, got {ids.device}")
     check_inputs(factors, ids, embed_dim)
     if with_stats and not use_layernorm:
         raise ValueError("the stats leg needs LayerNorm on: without it there are "
                          "no statistics to save")
+    if route not in (None, "strided", "rows") or (with_stats and route is not None):
+        raise ValueError(f"route {route!r}: the serving leg reads 'strided' or 'rows'; "
+                         f"the stats leg has its own")
     f1, f2 = factors
     rank, q1, t1 = f1.shape
     _, q2, t2 = f2.shape
@@ -144,18 +193,27 @@ def kron_gather_cuda(factors: Sequence[torch.Tensor], ids: torch.Tensor,
     if n > 0:
         with torch.cuda.device(ids.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if with_stats:
+            how = "stats" if with_stats else route or lookup_route(n)
+            bands = lookup_bands(n, q1, _sms(ids.device))
+            if how != "strided":
                 ft1 = torch.empty((t1, rank, q1), dtype=torch.float32, device=ids.device)
                 ft2 = torch.empty((t2, rank, q2), dtype=torch.float32, device=ids.device)
+            if how == "stats":
                 rc = lib.w2k_kron_gather2_stats(ids.data_ptr(), n, f1.data_ptr(),
                                                 f2.data_ptr(), rank, q1, t1, q2, t2, LN_EPS,
                                                 ft1.data_ptr(), ft2.data_ptr(),
                                                 out.data_ptr(), embed_dim, stats.data_ptr(),
                                                 stream)
+            elif how == "rows":
+                rc = lib.w2k_kron_gather2_rows(ids.data_ptr(), n, f1.data_ptr(),
+                                               f2.data_ptr(), rank, q1, t1, q2, t2,
+                                               int(use_layernorm), LN_EPS, ft1.data_ptr(),
+                                               ft2.data_ptr(), out.data_ptr(), embed_dim,
+                                               bands, stream)
             else:
                 rc = lib.w2k_kron_gather2(ids.data_ptr(), n, f1.data_ptr(), f2.data_ptr(),
                                           rank, q1, t1, q2, t2, int(use_layernorm), LN_EPS,
-                                          out.data_ptr(), embed_dim, None, stream)
+                                          out.data_ptr(), embed_dim, None, bands, stream)
         _raise_on(lib, rc, "kron_gather")
         launches["kron_gather_fwd_stats" if with_stats else "kron_gather_fwd"] += 1
     return (out, stats) if with_stats else out
@@ -166,7 +224,8 @@ def kron_gather_quant_cuda(factors_q: Sequence[torch.Tensor], scales: Sequence[t
                            use_layernorm: bool = True) -> torch.Tensor:
     """Launch the dequant-fused CUDA lookup over int8 / fp8 payloads:
     ids (N,) int32 -> (N, embed_dim) fp32; ids outside ``[0, prod t)``
-    give rows of NaN."""
+    give rows of NaN. It reads strided (no byte copy of the payloads) over
+    :func:`lookup_bands` blocks per id."""
     if ids.device.type != "cuda":
         raise ValueError(f"kron_gather_quant_cuda needs CUDA tensors, got {ids.device}")
     kind, (s1, s2) = check_quant_inputs(factors_q, scales, ids, embed_dim)
@@ -183,7 +242,8 @@ def kron_gather_quant_cuda(factors_q: Sequence[torch.Tensor], scales: Sequence[t
             rc = lib.w2k_kron_gather2_quant(
                 ids.data_ptr(), n, f1.data_ptr(), f2.data_ptr(), s1.data_ptr(),
                 s2.data_ptr(), kind, rank, q1, t1, q2, t2, int(use_layernorm), LN_EPS,
-                out.data_ptr(), embed_dim, stream)
+                out.data_ptr(), embed_dim, lookup_bands(n, q1, _sms(ids.device)),
+                stream)
         _raise_on(lib, rc, "kron_gather_quant")
         launches["kron_gather_fwd_quant"] += 1
     return out

@@ -18,7 +18,12 @@ shape alone: ``ce_bwd_tc_kernel`` (64-token blocks, its three large
 products on the tensor cores in 3xTF32) for every head whose buffers fit
 its shared memory, and ``ce_bwd_kernel`` (32-token blocks, fp32 on the CUDA
 cores) for the rest. Both count under ``launches["kron_ce_bwd"]``;
-``routes`` counts the calls of each.
+``routes`` counts the calls of each. The forward has two kernels the same
+way, picked by :func:`fwd_route`: ``ce_fwd_tc_kernel`` (the backward's
+pass 1 in the same device code, so the backward recomputes the very logits
+whose ``(m, l)`` the forward kept) wherever the backward takes the tensor
+cores, and ``ce_fwd_kernel`` (fp32, CUDA cores) for the rest; both count
+under ``launches["kron_ce_fwd"]``.
 """
 
 from __future__ import annotations
@@ -36,12 +41,14 @@ from repro_torch.kernels.kron_logits.ref import (kron_ce_bwd_ref, kron_ce_fwd_re
 
 __all__ = ["fused_kron_ce", "FusedKronCE", "kron_ce_fwd_cuda", "kron_ce_bwd_cuda",
            "kron_ce_fwd_ref", "kron_ce_bwd_ref", "kron_ce_naive", "kron_ce_tiled",
-           "check_inputs", "vocab_splits", "bwd_vocab_splits", "bwd_route", "tc_chunks",
-           "launches", "routes"]
+           "check_inputs", "vocab_splits", "bwd_vocab_splits", "bwd_route", "fwd_route",
+           "tc_chunks", "launches", "routes"]
 
 launches = {"kron_ce_fwd": 0, "kron_ce_bwd": 0}
-# calls of each backward kernel (both also count as launches["kron_ce_bwd"])
-routes = {"kron_ce_bwd_tc": 0, "kron_ce_bwd_simt": 0}
+# calls of each kernel (each also counts as launches["kron_ce_bwd"] or
+# launches["kron_ce_fwd"])
+routes = {"kron_ce_bwd_tc": 0, "kron_ce_bwd_simt": 0, "kron_ce_fwd_tc": 0,
+          "kron_ce_fwd_simt": 0}
 ROWS_PER_BLOCK = 32  # tokens per block (BT in the source)
 TC_ROWS_PER_BLOCK = 64  # tokens per block of the tensor-core backward (kT)
 _SMEM_LIMIT = 227 * 1024
@@ -51,6 +58,10 @@ _SMEM_LIMIT = 227 * 1024
 # column twice; 18 barriers (the rings' full and empty, 2 x 4 each, and two
 # hand-offs) and 1,024 bytes of alignment
 _TC_PASS1_END, _TC_DF1_AT, _TC_SMEM_TAIL = 178_176, 173_056, 18 * 8 + 1024
+# the tensor-core forward's (fwd_smem_bytes in the source): pass 1's region,
+# the x chunk, the F1 column [q1][rp], the per-token statistics and labels
+# (16 bytes a token of 64), 8 barriers and 1,024 bytes of alignment
+_TC_FWD_STATS, _TC_FWD_TAIL = 16 * 64, 8 * 8 + 1024
 _TC_CHUNK_ROWS, _TC_X_FLOATS = 64, 8192
 _lib: Optional[ctypes.CDLL] = None
 
@@ -73,6 +84,11 @@ def _load() -> ctypes.CDLL:
         lib.w2k_kron_ce_bwd_tc.restype = i
         lib.w2k_kron_ce_bwd_tc_smem_bytes.argtypes = [i, i, i, i, i, i]
         lib.w2k_kron_ce_bwd_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.w2k_kron_ce_fwd_tc.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, i,
+                                           p, p, p, p, p, p, p, p, p]
+        lib.w2k_kron_ce_fwd_tc.restype = i
+        lib.w2k_kron_ce_fwd_tc_smem_bytes.argtypes = [i, i, i, i, i, i]
+        lib.w2k_kron_ce_fwd_tc_smem_bytes.restype = ctypes.c_longlong
         lib.w2k_error_string.argtypes = [i]
         lib.w2k_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -148,6 +164,12 @@ def _tc_smem_bytes(rank: int, q1: int) -> int:
     return -(-f1_end // 8) * 8 + _TC_SMEM_TAIL
 
 
+def _tc_fwd_smem_bytes(rank: int, q1: int) -> int:
+    rp = -(-rank // 4) * 4
+    stats_at = _TC_PASS1_END + 4 * _TC_X_FLOATS + 4 * q1 * rp
+    return -(-(stats_at + _TC_FWD_STATS) // 8) * 8 + _TC_FWD_TAIL
+
+
 def bwd_route(rank: int, q1: int, q2: int, t2: int) -> str:
     """The backward kernel of a head that :func:`check_inputs` takes, from
     its shape alone: ``"kron_ce_bwd_tc"`` when its F1 column and x slice fit
@@ -155,6 +177,18 @@ def bwd_route(rank: int, q1: int, q2: int, t2: int) -> str:
     if tc_chunks(rank, q1, q2) is None or _tc_smem_bytes(rank, q1) > _SMEM_LIMIT:
         return "kron_ce_bwd_simt"
     return "kron_ce_bwd_tc"
+
+
+def fwd_route(rank: int, q1: int, q2: int, t2: int) -> str:
+    """The forward kernel of a head that :func:`check_inputs` takes, from its
+    shape alone: ``"kron_ce_fwd_tc"`` wherever :func:`bwd_route` gives the
+    tensor-core backward and the forward's buffers (pass 1's region of the
+    backward, the x chunk and one F1 layout) fit too, else
+    ``"kron_ce_fwd_simt"``."""
+    if (bwd_route(rank, q1, q2, t2) == "kron_ce_bwd_tc"
+            and _tc_fwd_smem_bytes(rank, q1) <= _SMEM_LIMIT):
+        return "kron_ce_fwd_tc"
+    return "kron_ce_fwd_simt"
 
 
 def _prep(factors, h, labels):
@@ -186,19 +220,57 @@ def _check_smem(lib, dims, backward: bool) -> None:
                          f"(> {_SMEM_LIMIT}) at rank {r}, q ({q1}, {q2}), t_2 {t2}")
 
 
+def _fwd_tc(lib, x, y, factors, dims, vocab_size, loss, m, l) -> None:
+    """The tensor-core forward's launch into ``loss, m, l``."""
+    r, q1, t1, q2, t2 = dims
+    n = x.shape[0]
+    jcm, kcm = tc_chunks(r, q1, q2)
+    smem = lib.w2k_kron_ce_fwd_tc_smem_bytes(r, q1, q2, t2, jcm, kcm)
+    if smem != _tc_fwd_smem_bytes(r, q1):
+        raise RuntimeError(f"the tensor-core forward needs {smem} B of shared memory, its "
+                           f"route assumed {_tc_fwd_smem_bytes(r, q1)} B")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = bwd_vocab_splits(n, t1, sms)
+    npad = -(-n // TC_ROWS_PER_BLOCK) * TC_ROWS_PER_BLOCK
+    nch = -(-q2 // jcm) * -(-r // kcm)
+    dev, f32 = x.device, torch.float32
+    xt = torch.empty((npad, q2, q1), dtype=f32, device=dev)
+    img1 = torch.empty(nch * 8 * 26_624, dtype=torch.uint8, device=dev)  # the F2^T image
+    part = torch.empty((3, splits, npad), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.w2k_kron_ce_fwd_tc(
+            x.data_ptr(), n, y.data_ptr(), factors[0].data_ptr(), factors[1].data_ptr(),
+            r, q1, t1, q2, t2, vocab_size, splits, jcm, kcm, xt.data_ptr(), img1.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
+            loss.data_ptr(), m.data_ptr(), l.data_ptr(), stream)
+    _raise_on(lib, rc, "kron_logits forward (tensor cores)")
+
+
 def kron_ce_fwd_cuda(factors: Sequence[torch.Tensor], h: torch.Tensor, labels: torch.Tensor,
-                     vocab_size: int):
-    """Launch the fused CE forward: ``(loss, m, l)``, each (N,) fp32."""
+                     vocab_size: int, route: Optional[str] = None):
+    """Launch the fused CE forward: ``(loss, m, l)``, each (N,) fp32, on the
+    kernel :func:`fwd_route` picks for the head, or on ``route``
+    (``"kron_ce_fwd_simt"`` takes every head; ``"kron_ce_fwd_tc"`` only
+    those that :func:`fwd_route` gives it)."""
     if h.device.type != "cuda":
         raise ValueError(f"kron_ce_fwd_cuda needs CUDA tensors, got {h.device}")
     lib, x, y, dims, splits = _prep(factors, h, labels)
-    _check_smem(lib, dims, backward=False)
     r, q1, t1, q2, t2 = dims
+    fits = fwd_route(r, q1, q2, t2)
+    route = route or fits
+    if route not in ("kron_ce_fwd_simt", fits):
+        raise ValueError(f"route {route!r} does not take this head (its route: {fits!r})")
     n = x.shape[0]
-    npad = -(-n // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
     loss, m, l = (torch.empty(n, dtype=torch.float32, device=x.device) for _ in range(3))
-    part = torch.empty((3, splits, npad), dtype=torch.float32, device=x.device)
-    if n > 0:
+    if n == 0:
+        return loss, m, l
+    if route == "kron_ce_fwd_tc":
+        _fwd_tc(lib, x, y, factors, dims, vocab_size, loss, m, l)
+    else:
+        _check_smem(lib, dims, backward=False)
+        npad = -(-n // ROWS_PER_BLOCK) * ROWS_PER_BLOCK
+        part = torch.empty((3, splits, npad), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.w2k_kron_ce_fwd(
@@ -207,7 +279,8 @@ def kron_ce_fwd_cuda(factors: Sequence[torch.Tensor], h: torch.Tensor, labels: t
                 part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
                 loss.data_ptr(), m.data_ptr(), l.data_ptr(), stream)
         _raise_on(lib, rc, "kron_logits forward")
-        launches["kron_ce_fwd"] += 1
+    launches["kron_ce_fwd"] += 1
+    routes[route] += 1
     return loss, m, l
 
 

@@ -28,7 +28,10 @@ runs equal bit for bit. The fused CE forward: atol 1e-4 + rtol 1e-5
 on the losses (exponential sums over up to 152,100 columns in another
 order), atol 1e-5 + rtol 1e-5 on m, rtol 2e-4 on l, which carries the
 logits' absolute rounding (about 1e-4 at |logit| ~ 100 with these
-factors). Its backward: atol 1e-4·max + rtol 1e-4 on dh and dF, whose
+factors), on both of its kernels (the tensor-core one and the CUDA-core
+one), and its losses within four times the fp32 plain version's distance
+or 1e-5 of the largest loss of a float64 forward. Its backward: atol
+1e-4·max + rtol 1e-4 on dh and dF, whose
 entries are sums over every vocabulary column (and token) of softmax −
 onehot terms that cancel; against a float64 backward, within four times
 the fp32 plain version's own distance or 1e-5 of the largest entry (the
@@ -61,7 +64,9 @@ the last hidden state and the caches.
 The quantized serving legs (int8 and fp8 payloads with per-rank scales)
 take the tolerances of their fp32 legs: the kernels and the plain versions
 dequantize to the same floats (``float(q) * scale``) and then differ only
-in summation order, as the fp32 legs do.
+in summation order, as the fp32 legs do. Against the fp32 leg on the
+dequantized stacks they give the same bits, as the fp32 leg's two routes
+and the stats leg do with each other, at every count of blocks per id.
 """
 
 import dataclasses
@@ -750,3 +755,149 @@ def test_kron_ce_backward_edges(dev, rank, q, t, vocab, n, width):
         assert err_kernel <= max(4 * err_plain, 1e-5 * e.abs().max().item())
     again = CE.kron_ce_bwd_cuda(f, h, y, m, l, g, vocab)
     assert torch.equal(again[1], dh) and all(torch.equal(a, b) for a, b in zip(again[0], dfs))
+
+
+# The CE forward on both routes, each held as the backward is in
+# test_kron_ce_kernels_match_plain (the loss, m and l against the plain
+# version; the losses within max(4 x the fp32 plain version's error, 1e-5
+# max|exact|) of a float64 forward) and the same bits twice: the tensor-core
+# kernel (ce_fwd_tc_kernel, where fwd_route gives it) and the CUDA-core
+# ce_fwd_kernel, at CE_CASES (t2 13 among them) and the qwen3-1.7b head's
+# edges: one token, 65 (a second 64-token block of one token), and a
+# vocabulary that ends inside a t1 column (100,000 = 256 x 390 + 160);
+# labels 0 and vocab - 1 (one token: vocab - 1, in the last column).
+CE_FWD_CASES = CE_CASES + [(32, (64, 32), (390, 390), 151936, 1, 2048),
+                           (32, (64, 32), (390, 390), 151936, 65, 2048),
+                           (32, (64, 32), (390, 390), 100000, 300, 2048)]
+
+
+@pytest.mark.parametrize("route", ["kron_ce_fwd_tc", "kron_ce_fwd_simt"])
+@pytest.mark.parametrize("rank,q,t,vocab,n,width", CE_FWD_CASES)
+def test_kron_ce_forward_routes_match_plain_and_float64(dev, route, rank, q, t, vocab, n,
+                                                        width):
+    f = _factors(dev, rank, q, t, seed=1)
+    h = torch.randn((n, width), device=dev)
+    y = torch.randint(0, vocab, (n,), device=dev, dtype=torch.int32)
+    y[-1] = vocab - 1
+    if n > 1:
+        y[0] = 0
+    assert CE.fwd_route(rank, q[0], q[1], t[1]) == "kron_ce_fwd_tc"
+    before, routes = dict(CE.launches), dict(CE.routes)
+    loss, m, l = CE.kron_ce_fwd_cuda(f, h, y, vocab, route=route)
+    torch.cuda.synchronize()
+    assert CE.launches == {**before, "kron_ce_fwd": before["kron_ce_fwd"] + 1}
+    assert CE.routes == {**routes, route: routes[route] + 1}
+    want_loss, want_m, want_l = CE.kron_ce_fwd_ref(f, h, y, vocab, 4)
+    torch.testing.assert_close(loss, want_loss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(m, want_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, want_l, atol=0.0, rtol=2e-4)
+    exact, _, _ = CE.kron_ce_fwd_ref([x.double() for x in f], h.double(), y, vocab, 4)
+    err_kernel = (loss.double() - exact).abs().max().item()
+    err_plain = (want_loss.double() - exact).abs().max().item()
+    assert err_kernel <= max(4 * err_plain, 1e-5 * exact.abs().max().item())
+    again = CE.kron_ce_fwd_cuda(f, h, y, vocab, route=route)
+    assert all(torch.equal(a, b) for a, b in zip(again, (loss, m, l)))
+
+
+def test_kron_ce_forward_route_of_a_head_past_the_tensor_cores(dev):
+    # 1,024 ranks at q2 = 1: the F1 column does not fit the tensor-core kernels
+    f = _factors(dev, 1024, (8, 1), (5, 7), seed=1)
+    h = torch.randn((40, 8), device=dev)
+    y = torch.randint(0, 30, (40,), device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        CE.kron_ce_fwd_cuda(f, h, y, 30, route="kron_ce_fwd_tc")
+    routes = dict(CE.routes)
+    loss, m, l = CE.kron_ce_fwd_cuda(f, h, y, 30)
+    assert CE.routes == {**routes, "kron_ce_fwd_simt": routes["kron_ce_fwd_simt"] + 1}
+    want_loss, _, _ = CE.kron_ce_fwd_ref(f, h, y, 30, 4)
+    torch.testing.assert_close(loss, want_loss, atol=1e-4, rtol=1e-5)
+
+
+# One autograd call of fused_kron_ce on the card (its forward and backward
+# kernels, both on the tensor cores) against the plain pair
+# (use_kernel=False: kron_ce_fwd_ref, then kron_ce_bwd_ref), at the
+# tolerances of test_kron_ce_kernels_match_plain.
+@pytest.mark.parametrize("rank,q,t,vocab,n,width", CE_CASES)
+def test_fused_kron_ce_call_matches_the_plain_pair(dev, rank, q, t, vocab, n, width):
+    f = _factors(dev, rank, q, t, seed=2)
+    h = torch.randn((n, width), device=dev)
+    y = torch.randint(0, vocab, (n,), device=dev, dtype=torch.int32)
+    y[0], y[-1] = 0, vocab - 1
+    g = (torch.rand(n, device=dev) + 0.5) / n
+    runs = []
+    for use_kernel in (None, False):
+        fs = [x.clone().requires_grad_(True) for x in f]
+        hh = h.clone().requires_grad_(True)
+        before = dict(CE.routes)
+        loss = CE.fused_kron_ce(fs, hh, y, vocab, 4, use_kernel=use_kernel)
+        loss.backward(g)
+        torch.cuda.synchronize()
+        ran = {k: CE.routes[k] - before[k] for k in CE.routes}
+        on = 1 if use_kernel is None else 0
+        assert ran == {"kron_ce_fwd_tc": on, "kron_ce_fwd_simt": 0, "kron_ce_bwd_tc": on,
+                       "kron_ce_bwd_simt": 0}
+        runs.append((loss.detach(), hh.grad, [x.grad for x in fs]))
+    (l_k, dh_k, df_k), (l_p, dh_p, df_p) = runs
+    torch.testing.assert_close(l_k, l_p, atol=1e-4, rtol=1e-5)
+    for a, b in zip([dh_k, *df_k], [dh_p, *df_p]):
+        _close_scaled(a, b, scale=1e-4)
+
+
+# The serving lookup's bits (csrc/kron_gather.cu) on the qwen3-1.7b
+# embedding at 1, 8, 33, 128 and 2,049 ids (8, 8, 4, 1 and 1 blocks per
+# id), LN on and off, all of a row's columns and fewer (1,000: a band writes
+# part of its rows and the bands after it none): the fp32 leg on both routes
+# and on its default, the stats leg (LN on), and each quantized payload
+# against the fp32 leg on its dequantized stacks (q.float() * scale) give
+# the same bits; ids outside [0, t1 t2) give NaN rows in every band; the
+# values within the fp32 tolerance of the plain version; one launch
+# counted per call.
+@pytest.mark.parametrize("out_cols", [2048, 1000])
+@pytest.mark.parametrize("ln", [True, False])
+@pytest.mark.parametrize("n", [1, 8, 33, 128, 2049])
+def test_serving_lookup_legs_give_the_same_bits(dev, n, ln, out_cols):
+    rank, q, t = 32, (64, 32), (390, 390)
+    f = _factors(dev, rank, q, t, seed=3)
+    total = math.prod(t)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    ids = torch.randint(0, total, (n,), generator=gen, device=dev, dtype=torch.int32)
+    ids[-1] = total - 1
+    if n > 1:
+        ids[0] = 0
+    if n > 3:
+        ids[1], ids[2] = -1, total
+    bad = (ids < 0) | (ids >= total)
+    before = dict(G.launches)
+    fp32 = {r: G.kron_gather_cuda(f, ids, out_cols, ln, route=r) for r in ("strided", "rows")}
+    default = G.kron_gather_cuda(f, ids, out_cols, ln)
+    torch.cuda.synchronize()
+    assert G.launches == {**before, "kron_gather_fwd": before["kron_gather_fwd"] + 3}
+    want = G.kron_gather_ref(f, ids[~bad], embed_dim=out_cols, use_layernorm=ln)
+    for got in (*fp32.values(), default):
+        assert got.shape == (n, out_cols)
+        assert torch.isnan(got[bad]).all()
+        assert torch.equal(got[~bad], fp32["strided"][~bad])
+    torch.testing.assert_close(default[~bad], want, atol=1e-4, rtol=1e-5)
+    if ln:
+        out, _ = G.kron_gather_cuda(f, ids, out_cols, True, with_stats=True)
+        assert torch.equal(out[~bad], default[~bad])
+    for mode in ("int8", "fp8"):
+        payloads, scales = _quantized(dev, mode, rank, q, t, seed=3)
+        deq = [p.float() * s for p, s in zip(payloads, scales)]
+        before = dict(G.launches)
+        got = G.kron_gather_quant_cuda(payloads, scales, ids, out_cols, ln)
+        torch.cuda.synchronize()
+        assert G.launches == {**before,
+                              "kron_gather_fwd_quant": before["kron_gather_fwd_quant"] + 1}
+        assert torch.isnan(got[bad]).all()
+        assert torch.equal(got[~bad], G.kron_gather_cuda(deq, ids, out_cols, ln)[~bad])
+
+
+def test_serving_lookup_nan_rows_in_every_band(dev):
+    f = _factors(dev, 32, (64, 32), (390, 390))
+    for n in (1, 8, 33, 128):  # 8, 8, 4 and 1 bands
+        ids = torch.full((n,), -1, device=dev, dtype=torch.int32)
+        for r in ("strided", "rows"):
+            assert torch.isnan(G.kron_gather_cuda(f, ids, 2048, True, route=r)).all()
+        payloads, scales = _quantized(dev, "int8", 32, (64, 32), (390, 390))
+        assert torch.isnan(G.kron_gather_quant_cuda(payloads, scales, ids, 2048)).all()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the full qwen3-1.7b training step of two checkouts on one card, in turns.
+"""Time the full qwen3-1.7b training step and decode step of two checkouts on one card, in turns.
 
     python3 tools/ab_train_step.py OTHER_CHECKOUT [--rounds 1] [--steps 6]
 
@@ -12,8 +12,10 @@ then trains the dense config and the ket config (rank 8) from seed 0 for
 (host clock after a sync) and the device time of one more step by
 ``torch.profiler``: every kernel, and apart the flash-attention kernels,
 the fused-CE kernels (forward, backward, their copies and reduces) and
-the kron_gather kernels. The last line is a JSON summary per tree. Needs a
-CUDA card.
+the kron_gather kernels. Then the dense config serves 8 prompts of 128
+tokens (chunked prefill into the dense cache) and takes ``4 x --steps``
+greedy decode steps: the same numbers for one decode step ("decode"). The
+last line is a JSON summary per tree. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ import time
 
 THIS = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS, SEQ, LR, KET_RANK = 2048, 256, 1e-3, 8
+# the decode step: 8 slots of a 512-position cache after 128-token prompts
+BATCH, PROMPT, MAX_LEN = 8, 128, 512
 # the kernels of csrc/kron_logits.cu and csrc/kron_gather.cu, by name
-CE_KEYS = ("ce_fwd_kernel", "ce_combine", "ce_bwd", "prep_f2", "transpose_x_kernel",
-           "df2_reduce", "dx_reduce", "sum_parts_kernel")
+CE_KEYS = ("ce_fwd_kernel", "ce_fwd_tc_kernel", "ce_combine", "ce_bwd", "prep_f2",
+           "transpose_x_kernel", "df2_reduce", "dx_reduce", "sum_parts_kernel")
 GATHER_KEYS = ("kron_gather2", "transpose_factors")
 METRICS = ("wall_ms", "device_ms", "flash_ms", "ce_ms", "gather_ms")
 
@@ -52,6 +56,24 @@ def child(root: str, steps: int) -> None:
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda")
     build.build_all([p[:-3] for p in os.listdir(build.CSRC) if p.endswith(".cu")])
+
+    def dev_ms(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    def is_ce(key):  # kron_matmul's kron_sum_parts_kernel is not one of them
+        return any(k in key for k in CE_KEYS) and "kron_sum_parts" not in key
+
+    def summary(prof, walls):
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA]
+        return {"wall_ms": statistics.median(walls[1:]), "walls_ms": walls[1:],
+                "device_ms": sum(dev_ms(e) for e in kernels),
+                "flash_ms": sum(dev_ms(e) for e in kernels if "flash_fwd" in e.key),
+                "ce_ms": sum(dev_ms(e) for e in kernels if is_ce(e.key)),
+                "gather_ms": sum(dev_ms(e) for e in kernels
+                                 if any(k in e.key for k in GATHER_KEYS))}
+
     out = {}
     for kind, cfg in (("dense", get_config("qwen3-1.7b")),
                       ("ket", get_config("qwen3-1.7b", linear_kind="ket",
@@ -73,24 +95,33 @@ def child(root: str, steps: int) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step(state, batches[steps])
             torch.cuda.synchronize()
-
-        def dev_ms(e):
-            return (getattr(e, "self_device_time_total", None)
-                    or getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-
-        kernels = [e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA]
-        def is_ce(key):  # kron_matmul's kron_sum_parts_kernel is not one of them
-            return any(k in key for k in CE_KEYS) and "kron_sum_parts" not in key
-
-        out[kind] = {"wall_ms": statistics.median(walls[1:]), "walls_ms": walls[1:],
-                     "device_ms": sum(dev_ms(e) for e in kernels),
-                     "flash_ms": sum(dev_ms(e) for e in kernels if "flash_fwd" in e.key),
-                     "ce_ms": sum(dev_ms(e) for e in kernels if is_ce(e.key)),
-                     "gather_ms": sum(dev_ms(e) for e in kernels
-                                      if any(k in e.key for k in GATHER_KEYS))}
+        out[kind] = summary(prof, walls)
         del state, step, batches
         torch.cuda.empty_cache()
+    cfg = get_config("qwen3-1.7b")
+    params = MD.init_params(cfg, seed=0, device=dev)
+    chunk = cfg.prefill_chunk
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev, dtype=torch.int32,
+                            generator=torch.Generator(device=dev).manual_seed(2))
+    lens = torch.full((BATCH,), chunk, device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        cache = MD.init_cache(cfg, BATCH, MAX_LEN, device=dev)
+        for c0 in range(0, PROMPT, chunk):
+            logits, cache = MD.prefill_chunk_fn(params, cfg, cache, prompts[:, c0:c0 + chunk],
+                                                lens)
+        tok = logits.argmax(-1).to(torch.int32)
+        walls = []
+        for i in range(4 * steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = MD.serve_step_fn(params, cfg, cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            MD.serve_step_fn(params, cfg, cache, tok)
+            torch.cuda.synchronize()
+    out["decode"] = summary(prof, walls)
     print(json.dumps(out), flush=True)
 
 
@@ -127,7 +158,8 @@ def main() -> None:
                 for k, v in r.items()), flush=True)
     print(card)
     print(json.dumps({name: {k: {m: statistics.median(r[k][m] for r in rs) for m in METRICS}
-                             for k in ("dense", "ket")} for name, rs in runs.items()}))
+                             for k in ("dense", "ket", "decode")}
+                      for name, rs in runs.items()}))
 
 
 if __name__ == "__main__":

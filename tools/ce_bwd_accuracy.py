@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """How close the fused-CE backward on the card comes to a float64 backward.
 
-    python3 tools/ce_bwd_accuracy.py [--tokens 1 65 2048] [--seeds 10]
+    python3 tools/ce_bwd_accuracy.py [--tokens 1 65 2048] [--seeds 10] [--fwd-route ROUTE]
 
 For the qwen3-1.7b head (rank 32, q (64, 32), t (390, 390), vocab 151,936)
 and each token count, draws ``--seeds`` seeded inputs (factors, h of width
-2,048, labels, g = (U + 0.5) / N) and runs the CUDA forward, then the CUDA
+2,048, labels, g = (U + 0.5) / N) and runs the CUDA forward (on
+``--fwd-route``, by default the one ``ops.fwd_route`` picks: its (m, l)
+feed the backward and the references), then the CUDA
 backward (``ops.kron_ce_bwd_cuda``, on the route ``ops.bwd_route`` picks),
 the plain version in fp32 and the plain version in float64. It prints, per
 draw, the backward's device time and for dh, dF1 and dF2 the kernel's
@@ -28,6 +30,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tokens", type=int, nargs="+", default=[1, 65, 2048])
     ap.add_argument("--seeds", type=int, default=10)
+    ap.add_argument("--fwd-route", choices=("kron_ce_fwd_tc", "kron_ce_fwd_simt"),
+                    default=None)
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -47,7 +51,7 @@ def main() -> None:
                  for qj, tj in zip(q, t)]
             h = torch.randn((n, width), generator=gen, device=dev)
             y = torch.randint(0, vocab, (n,), generator=gen, device=dev, dtype=torch.int32)
-            _, m, l = CE.kron_ce_fwd_cuda(f, h, y, vocab)
+            _, m, l = CE.kron_ce_fwd_cuda(f, h, y, vocab, route=args.fwd_route)
             g = (torch.rand(n, generator=gen, device=dev) + 0.5) / n
             dfs, dh = CE.kron_ce_bwd_cuda(f, h, y, m, l, g, vocab)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -69,6 +73,7 @@ def main() -> None:
             print(f"N {n} seed {seed}: {start.elapsed_time(end):.2f} ms; " + "; ".join(cols),
                   flush=True)
     print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "fwd_route": args.fwd_route or CE.fwd_route(rank, *q, t[1]),
                       "worst_of_limit": {str(n): v for n, v in worst.items()}}))
 
 
